@@ -9,17 +9,35 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
   1. the card (nvidia-smi name and power limit); TF32 off for matmuls and
      cuDNN, so every f32 product on the card is full f32;
   2. build the CUDA kernels from recalgorithm_tpu_torch/csrc into build/;
-  3. each kernel against its plain torch twin on the card, at the serving and
-     offline batch sizes, timed with CUDA events beside its bound;
-  4. the main path: full-width DIN (DINConfig defaults, real WeChat table
+  3. each kernel against its plain torch twin on the card, timed with CUDA
+     events beside its bound and, for BST attention, beside
+     scaled_dot_product_attention: DIN attention at B = 37, 256, 4096; the
+     BST forward, P (f32 and bf16) and dq/dk/dv at (B, H, T) = (37|256|4096,
+     3, 51) and (4096, 2, 9);
+  4. main path 1: full-width DIN (DINConfig defaults, real WeChat table
      sizes, random weights from a seed) exported, served by the port's
-     build_server on cuda, ~64 HTTP requests from 4 threads, every response
+     build_server on cuda, 64 HTTP requests from 4 threads, every response
      held against the same export predicted on the CPU (plain twin);
   5. offline Predictor on cuda at B=4096, both use_softmax values, held
      against the CPU; where a batch's time goes at B = 8, 256 and 4096
-     (host wall time against device busy time by kernel, torch.profiler).
+     (host wall time against device busy time by kernel, torch.profiler);
+  6. full-width DIN trains a few steps through cli.main on cuda (the DIN
+     kernel's forward, autograd through the recompute for the backward);
+  7. main path 2: full-width BST (BSTConfig defaults, real table sizes)
+     trains through cli.main.main on cuda at B=4096 with one step-triggered
+     eval and a checkpoint, then resumes once; predictions.csv and the best
+     export are checked, and each BST kernel's launches against the steps and
+     eval batches the run took;
+  8. one BST train step on cuda held against the same step on the CPU (loss
+     and every gradient); the BST kernels at that step's own inputs; the
+     train step's time (CUDA events, host wall), ex/s and device idle share
+     (torch.profiler);
+  9. the golden recipe of tests/golden_common.py for BST on the card, its
+     eval AUC held to the band of tests/golden_bands.json;
+ 10. the BST export served over HTTP by build_server, every response held
+     against the CPU.
 
-The kernels' launch counts are set to 0 just before the main path and read
+Each main path's kernel launch counts are set to 0 just before it and read
 just after: a kernel of the path that never launched fails the run.  The
 line before the last is one JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}.  Any failure exits non-zero before
@@ -30,7 +48,10 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import csv
 import json
+import math
+import os
 import shutil
 import subprocess
 import sys
@@ -57,6 +78,20 @@ SEQ = "his_read_comment_7d_seq"
 PROFILE_BATCHES = (8, 256, 4096)
 PROFILE_ITERS = 20
 PROFILE_TOP = 8
+# BST kernels against their twins: shapes (B, H, T); the gradient bars of
+# the JAX package's own BST kernel test, 2e-2 where P was saved in bf16
+BST_SHAPES = ((37, 3, 51), (256, 3, 51), (4096, 3, 51), (4096, 2, 9))
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# main path 2: cli.main trains full-width BST at B=4096, evals every
+# BST_EVAL_EVERY steps, then resumes to BST_RESUME_STEPS
+BST_BATCH = 4096
+BST_STEPS = 40
+BST_EVAL_EVERY = 20
+BST_RESUME_STEPS = 50
+DIN_TRAIN_STEPS = 8
+STEP_ITERS = 20  # train steps timed / profiled in phase 8
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def phase(name: str) -> None:
@@ -86,13 +121,22 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_events(prof) -> list:
+    """The kernels and copies of a torch.profiler run; the GPU-side ranges
+    of user annotations (``Optimizer.step#Adam.step``) span kernels already
+    counted and are left out."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_batch(pred, batch) -> dict:
     """Where a served batch's time goes: host wall time of `predict_batch`
     (numpy in -> numpy out; it ends in a device->host copy, so it is
     synchronous), median of PROFILE_ITERS calls, against the device time of
     every kernel and copy per batch from torch.profiler over PROFILE_ITERS
     more (one stream, so their sum is the busy time)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -107,7 +151,7 @@ def profile_batch(pred, batch) -> dict:
         for _ in range(PROFILE_ITERS):
             pred.predict_batch(batch)
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = device_events(prof)
     by_name: dict[str, float] = defaultdict(float)
     for e in events:
         by_name[e.name] += e.time_range.elapsed_us() / PROFILE_ITERS / 1e3
@@ -139,6 +183,371 @@ def din_attention_bound_ms(lengths: np.ndarray, t: int, use_softmax: bool):
     nbytes = 4 * (16 * int(rows.sum()) + 33 * b) + 4 * 6273
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bst_bound_ms(lengths: np.ndarray, h: int, t: int, kind: str, p_bytes: int = 4):
+    """Least time for a BST kernel's work on these lengths (source note of
+    csrc/bst_attention.cu), d = 16: per (b, h) with n valid keys 4 T n d FLOP
+    forward, 8 T n d backward, 2 T^2 d for a len = 0 row; bytes: q, k, v and
+    o (forward) or q, k, v, do, dq, dk, dv (backward) once, P once where the
+    kernel writes or reads it, lengths once."""
+    d = 16
+    n = np.clip(lengths, 0, t).astype(np.int64)
+    per_row = {"forward": 4, "forward_save": 4, "backward": 8}[kind] * t * n * d
+    flops = h * int(np.where(n > 0, per_row, 2 * t * t * d).sum())
+    b = len(lengths)
+    tensors = 7 if kind == "backward" else 4
+    nbytes = 4 * tensors * b * h * t * d + 4 * b
+    if kind != "forward":
+        nbytes += b * h * t * t * p_bytes
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_grads(name: str, got, want, tol=GRAD_TOL) -> float:
+    """rtol, and atol scaled by max|want| (the JAX kernel test's rule)."""
+    worst = 0.0
+    for label, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+        if not np.isfinite(a).all():
+            raise AssertionError(f"{name} {label}: not finite")
+        scale = max(float(np.abs(b).max()), 1.0)
+        if not np.allclose(a, b, rtol=tol["rtol"], atol=tol["atol"] * scale):
+            raise AssertionError(f"{name} {label}: max abs err "
+                                 f"{float(np.abs(a - b).max()):.3e} beyond {tol} x {scale:.3g}")
+        worst = max(worst, float(np.abs(a - b).max()))
+    return worst
+
+
+def bst_case(b: int, h: int, t: int, seed: int):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(b, h, t, 16)).astype(np.float32)).cuda()
+                  for _ in range(4))
+    lengths = rng.integers(0, t + 1, b).astype(np.int32)
+    lengths[:3] = (0, t, 1)
+    return q, k, v, g, torch.from_numpy(lengths).cuda()
+
+
+def bst_kernels_vs_twins(q, k, v, g, lengths, timed: bool) -> dict:
+    """Each BST kernel against its twin on (q, k, v, lengths): forward, P in
+    f32 and bf16, dq/dk/dv from both.  With ``timed``: each kernel's ms, its
+    twin's, its bound, and scaled_dot_product_attention's (rows with len >= 1:
+    SDPA gives NaN on a fully masked row)."""
+    from recalgorithm_tpu_torch.ops.cuda import bst_attention as bk
+
+    b, h, t, _ = q.shape
+    want = bk.bst_mha_reference(q, k, v, lengths)
+    probs = bk.attention_probs_reference(q, k, lengths)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    twin_out = bk.bst_mha_reference(*leaves, lengths)
+    twin_grads = torch.autograd.grad(twin_out, leaves, g, retain_graph=True)
+    out = bk.bst_attention_forward(q, k, v, lengths)
+    out_s, p32 = bk.bst_attention_forward_save(q, k, v, lengths)
+    out_b, p16 = bk.bst_attention_forward_save(q, k, v, lengths, save_bf16=True)
+    grads = bk.bst_attention_backward(q, k, v, p32, g, lengths)
+    grads16 = bk.bst_attention_backward(q, k, v, p16, g, lengths)
+    torch.cuda.synchronize()
+    r = {"err": {
+        "forward": max(check_close(f"BST forward {tuple(q.shape)}", o.cpu().numpy(),
+                                   want.cpu().numpy()) for o in (out, out_s, out_b)),
+        "P": check_close("BST P f32", p32.cpu().numpy(), probs.cpu().numpy()),
+        "P_bf16": float((p16.float() - probs).abs().max()),
+        "backward": check_grads("BST backward", grads, twin_grads),
+        "backward_bf16": check_grads("BST backward, bf16 P", grads16, twin_grads, BF16_TOL),
+    }}
+    if r["err"]["P_bf16"] > BF16_TOL["atol"]:
+        raise AssertionError(f"BST P bf16: max abs err {r['err']['P_bf16']:.3e}")
+    if not timed:
+        return r
+    lens = lengths.cpu().numpy()
+    mask = (torch.arange(t, device=q.device)[None, :] < lengths[:, None])[:, None, None, :]
+    rows = lengths > 0
+    sq, sk, sv, sm, sg = (x[rows] for x in (q, k, v, mask, g))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    s_leaves = [x.clone().requires_grad_() for x in (sq, sk, sv)]
+    s_out = sdpa(*s_leaves, attn_mask=sm)
+    r["ms"] = {
+        "forward": cuda_ms(lambda: bk.bst_attention_forward(q, k, v, lengths), iters=100),
+        "forward_save": cuda_ms(lambda: bk.bst_attention_forward_save(q, k, v, lengths),
+                                iters=100),
+        "forward_save_bf16": cuda_ms(
+            lambda: bk.bst_attention_forward_save(q, k, v, lengths, True), iters=100),
+        "backward": cuda_ms(lambda: bk.bst_attention_backward(q, k, v, p32, g, lengths),
+                            iters=100),
+        "backward_bf16": cuda_ms(
+            lambda: bk.bst_attention_backward(q, k, v, p16, g, lengths), iters=100),
+    }
+    r["plain_ms"] = {
+        "forward": cuda_ms(lambda: bk.bst_mha_reference(q, k, v, lengths)),
+        "forward_save": cuda_ms(lambda: torch.einsum(
+            "bhij,bhjk->bhik", bk.attention_probs_reference(q, k, lengths), v)),
+        "backward": cuda_ms(lambda: torch.autograd.grad(twin_out, leaves, g,
+                                                        retain_graph=True)),
+    }
+    with torch.no_grad():
+        sdpa_fwd = cuda_ms(lambda: sdpa(sq, sk, sv, attn_mask=sm))
+    r["library_ms"] = {
+        "forward": sdpa_fwd,
+        "forward_save": cuda_ms(lambda: sdpa(*s_leaves, attn_mask=sm)),
+        "backward": cuda_ms(lambda: torch.autograd.grad(s_out, s_leaves, sg,
+                                                        retain_graph=True)),
+        "sdpa_rows": int(rows.sum()),
+    }
+    r["bound"] = {
+        "forward": bst_bound_ms(lens, h, t, "forward"),
+        "forward_save": bst_bound_ms(lens, h, t, "forward_save"),
+        "forward_save_bf16": bst_bound_ms(lens, h, t, "forward_save", p_bytes=2),
+        "backward": bst_bound_ms(lens, h, t, "backward"),
+        "backward_bf16": bst_bound_ms(lens, h, t, "backward", p_bytes=2),
+    }
+    return r
+
+
+def bst_counts() -> dict[str, int]:
+    from recalgorithm_tpu_torch.ops.cuda import bst_attention as bk
+
+    return {name: getattr(bk, name).launches for name in BST_KERNELS}
+
+
+def zero_counts() -> None:
+    from recalgorithm_tpu_torch.ops.cuda import bst_attention as bk
+    from recalgorithm_tpu_torch.ops.cuda.din_attention import din_attention
+
+    din_attention.launches = 0
+    for name in BST_KERNELS:
+        getattr(bk, name).launches = 0
+
+
+BST_KERNELS = ("bst_attention_forward", "bst_attention_forward_save", "bst_attention_backward")
+
+
+def train_cli(model: str, model_dir: str, steps: int, extra=()) -> dict:
+    """One run of the port's training entry point on cuda, full width."""
+    from recalgorithm_tpu_torch.cli.main import main as train_main
+
+    argv = ["--model", model, "--synthetic", "--synthetic_vocab_scale", "1.0",
+            "--batch_size", str(BST_BATCH), "--train_steps", str(steps),
+            "--model_dir", model_dir, "--predictions_csv",
+            os.path.join(model_dir, "predictions.csv"), "--eval_throttle_secs", "0",
+            "--log_every", "10", "--device", "cuda", *extra]
+    t0 = time.perf_counter()
+    final = train_main(argv)
+    torch.cuda.synchronize()
+    print(f"cli.main {model} to step {steps}: {time.perf_counter() - t0:.2f} s, "
+          f"final eval {final}", flush=True)
+    return final
+
+
+def profile_train_step(trainer, batches) -> dict:
+    """Where a BST train step's time goes: device ms of one step from CUDA
+    events around STEP_ITERS steps launched back to back (the steady pipeline,
+    host gaps included), the median host wall of a step that ends in a
+    synchronize, and the device busy time per step (torch.profiler, every
+    kernel and copy: one stream, so their sum is the busy time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for hb in batches[:3]:
+        trainer.train_step(hb)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(STEP_ITERS):
+        trainer.train_step(batches[i % len(batches)])
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / STEP_ITERS
+    walls = []
+    for i in range(STEP_ITERS):
+        t0 = time.perf_counter()
+        trainer.train_step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(STEP_ITERS):
+            trainer.train_step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    by_name: dict[str, float] = defaultdict(float)
+    for e in events:
+        by_name[e.name] += e.time_range.elapsed_us() / STEP_ITERS / 1e3
+    busy_ms = sum(by_name.values())
+    if not any("bst_attention" in name for name in by_name):
+        raise AssertionError("the profiled train steps ran no bst_attention kernel")
+    return {"step_ms": step_ms, "wall_ms": float(np.median(walls)) * 1e3,
+            "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / step_ms,
+            "device_ops_per_step": len(events) / STEP_ITERS,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]}
+
+
+def golden_bst(device: str, model_dir: str) -> float:
+    """tests/golden_common.py's fixed-seed recipe for BST (seed 3, vocab
+    scale 0.005, B=128, 300 steps, lr 0.01, hidden (64, 32), 32 eval batches
+    from seed 5000) through the port's Trainer; returns the eval AUC."""
+    from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.models.bst import BST, BSTConfig
+    from recalgorithm_tpu_torch.train import optimizers
+    from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    seed, batch, steps = 3, 128, 300
+    gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=seed, vocab_scale=0.005))
+    cfg = BSTConfig(batch_size=batch, hidden_units=(64, 32))
+    model = BST(cfg, wechat_schema(gen.vocab_sizes()), torch.Generator().manual_seed(seed))
+    trainer = Trainer(model, cfg.task_names, optimizers.build("adam", 0.01),
+                      TrainerConfig(model_dir=model_dir, train_steps=steps, log_every=1000,
+                                    save_checkpoints_steps=0, seed=seed), device=device)
+    ev = trainer.train_and_evaluate(gen.batches(batch, steps),
+                                    lambda: gen.batches(batch, 32, start_seed=5000),
+                                    log_fn=lambda line: None)
+    return ev["read_comment_auc"]
+
+
+BST_REPLACES = {"forward": "recalgorithm_tpu/ops/pallas/bst_attention.py:52",
+                "forward_save": "recalgorithm_tpu/ops/pallas/bst_attention.py:68",
+                "backward": "recalgorithm_tpu/ops/pallas/bst_attention.py:95"}
+
+
+def bst_step_phase(best_dir: str, train_counts: dict, card: str, kind: str) -> list[dict]:
+    """One full-width BST train step (loss and every gradient) on cuda held
+    against the same step on the CPU, dropout off so both draw nothing; the
+    BST kernels timed at that step's attention inputs; the step profiled.
+    Returns the kernels' entries of the JSON line."""
+    import recalgorithm_tpu_torch.ops.attention as attention
+    from recalgorithm_tpu_torch import convert
+    from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.models.bst import BST, BSTConfig
+    from recalgorithm_tpu_torch.train import optimizers
+    from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=7, vocab_scale=1.0))
+    schema = wechat_schema(gen.vocab_sizes())
+    weights = convert.load_export(best_dir)
+
+    def trainer(device, cfg):
+        model = BST(cfg, schema)
+        model.load_state_dict(weights)
+        return Trainer(model, cfg.task_names, optimizers.build("adam", cfg.learning_rate),
+                       TrainerConfig(model_dir=os.path.join(best_dir, "unused")),
+                       device=device)
+
+    hb = gen.batch(BST_BATCH, 1)
+
+    def one_step(device):
+        tr = trainer(device, BSTConfig(dropout_rate=0.0))
+        tr.model.train()
+        loss, _ = tr._loss_and_logits(tr._put_batch(hb))
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.cpu() for n, p in tr.model.named_parameters()}
+
+    captured = {}
+    plain_mha = attention.bst_mha
+
+    def capture(q, k, v, lengths, save_bf16=False):
+        captured.update(q=q.detach().clone(), k=k.detach().clone(), v=v.detach().clone(),
+                        lengths=lengths.clone())
+        return plain_mha(q, k, v, lengths, save_bf16)
+
+    attention.bst_mha = capture
+    try:
+        gpu_loss, gpu_grads = one_step("cuda")
+    finally:
+        attention.bst_mha = plain_mha
+    cpu_loss, cpu_grads = one_step("cpu")
+    worst = max(float((gpu_grads[n] - cpu_grads[n]).abs().max()) for n in cpu_grads)
+    print(f"train step B={BST_BATCH}: loss cuda {gpu_loss} cpu {cpu_loss}; "
+          f"max abs gradient difference over {len(cpu_grads)} tensors {worst:.3e}")
+    if not (math.isfinite(gpu_loss) and abs(gpu_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)):
+        raise AssertionError("the cuda train step's loss is not the CPU's within rtol 1e-5")
+    if worst > 1e-4:
+        raise AssertionError(f"a gradient differs from the CPU's by {worst:.3e} > 1e-4")
+
+    q, k, v, lengths = (captured[x] for x in ("q", "k", "v", "lengths"))
+    g = torch.from_numpy(np.random.default_rng(0).normal(size=tuple(q.shape))
+                         .astype(np.float32)).cuda()
+    r = bst_kernels_vs_twins(q, k, v, g, lengths, timed=True)
+    lens = lengths.cpu().numpy()
+    print(f"BST kernels at the train step's attention inputs ({tuple(q.shape)}, mean "
+          f"len {lens.mean():.2f}): {json.dumps(r, default=str)}")
+    entries = []
+    for key in ("forward", "forward_save", "backward"):
+        name = "bst_attention_" + key
+        bound, by = r["bound"][key]
+        err = {"forward": r["err"]["forward"],
+               "forward_save": max(r["err"]["forward"], r["err"]["P"]),
+               "backward": r["err"]["backward"]}[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "recalgorithm_tpu_torch/csrc/bst_attention.cu",
+            "replaces": BST_REPLACES[key], "launches": train_counts[name],
+            "max_abs_err": err, "ms": r["ms"][key], "plain_ms": r["plain_ms"][key],
+            "bound_ms": bound, "bound_by": by, "library_ms": r["library_ms"][key]})
+
+    tr = trainer("cuda", BSTConfig())
+    prof = profile_train_step(tr, [gen.batch(BST_BATCH, 10 + i) for i in range(4)])
+    print(f"BST train step on {kind} ({card}), B={BST_BATCH}, dropout 0.1: "
+          f"{prof['step_ms']} ms a step (CUDA events over {STEP_ITERS} steps back to "
+          f"back; {BST_BATCH / prof['step_ms'] * 1e3:.0f} ex/s), host wall of a "
+          f"synchronized step {prof['wall_ms']} ms (median), device busy "
+          f"{prof['busy_ms']} ms, idle share {prof['idle_share']:.4f}, "
+          f"{prof['device_ops_per_step']:.0f} kernels+copies per step")
+    for kname, ms in prof["top"]:
+        print(f"    {ms:9.5f} ms  {kname[:100]}")
+    return entries
+
+
+def serve_bst(best_dir: str, gen) -> None:
+    """The BST export served by build_server on cuda; every response held
+    against the CPU; only the inference forward may launch."""
+    from recalgorithm_tpu_torch.cli.serve import build_server
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.models.bst import BST, BSTConfig
+    from recalgorithm_tpu_torch.serving.predictor import Predictor
+
+    args = argparse.Namespace(
+        model="BST", model_dir=None, export_dir=best_dir, vocabulary_dir=None,
+        synthetic_vocab_scale=1.0, host="127.0.0.1", port=0,
+        max_batch_size=256, max_delay_ms=2.0, device="cuda")
+    schema = wechat_schema(gen.vocab_sizes())
+    hb = gen.batch(32, 4)
+    hb[SEQ][0], hb[SEQ + "_len"][0] = 0, 0
+    zero_counts()
+    httpd, batchers = build_server(args)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results: dict[int, float] = {}
+    errors: list[Exception] = []
+
+    def client(rows):
+        try:
+            for i in rows:
+                results[i] = post(url, payload_of(hb, i, schema))[0]
+        except Exception as exc:  # reported below, fails the run
+            errors.append(exc)
+
+    try:
+        threads = [threading.Thread(target=client, args=(range(j, 32, 4),)) for j in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        for bt in batchers.values():
+            bt.close()
+    counts = bst_counts()
+    if errors or len(results) != 32:
+        raise AssertionError(f"{len(results)}/32 responses; errors: {errors[:3]}")
+    want = Predictor(BST(BSTConfig(), schema), best_dir, device="cpu").predict_batch(hb)
+    err = check_close("BST HTTP responses vs CPU", np.array(
+        [results[i] for i in range(32)], np.float32), want["read_comment"])
+    print(f"32 BST requests from 4 threads: vs CPU max abs err {err:.3e}; kernel "
+          f"launches {counts}")
+    if counts["bst_attention_forward"] <= 0 or counts["bst_attention_forward_save"] \
+            or counts["bst_attention_backward"]:
+        raise AssertionError("BST serving must launch the inference forward only")
 
 
 def card_line() -> str:
@@ -252,8 +661,23 @@ def main() -> int:
                 bound, by = din_attention_bound_ms(lengths, 50, sm)
                 row += f"    {k_ms:.5f}    {p_ms:.5f}  {bound:.5f} ({by})"
             print(row, flush=True)
+    print("  BST attention: forward, P (f32, bf16) and dq/dk/dv vs the twin; "
+          f"gradients {GRAD_TOL} x max|g|, bf16 P {BF16_TOL}")
+    bst_rows = {}
+    for b, h, t in BST_SHAPES:
+        r = bst_kernels_vs_twins(*bst_case(b, h, t, seed=b + t), timed=True)
+        bst_rows[(b, h, t)] = r
+        print(f"  B={b} H={h} T={t}: max abs err {json.dumps(r['err'])}", flush=True)
+        if "ms" in r:
+            for kname, ms in r["ms"].items():
+                base = kname.replace("_bf16", "")
+                bound, by = r["bound"][kname]
+                print(f"    {kname:<18} kernel {ms:.5f} ms  twin "
+                      f"{r['plain_ms'].get(base, float('nan')):.5f} ms  sdpa "
+                      f"{r['library_ms'].get(base, float('nan')):.5f} ms  bound "
+                      f"{bound:.5f} ms ({by})", flush=True)
 
-    phase("4. main path: full-width DIN served over HTTP on cuda")
+    phase("4. main path 1: full-width DIN served over HTTP on cuda")
     schema = wechat_schema()
     model = DIN(DINConfig(), schema, torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
@@ -274,7 +698,7 @@ def main() -> int:
         synthetic_vocab_scale=1.0, host="127.0.0.1", port=0,
         max_batch_size=256, max_delay_ms=2.0, device="cuda")
 
-    din_attention.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     httpd, batchers = build_server(args)
     print(f"build_server (load export + warm every bucket "
@@ -396,14 +820,85 @@ def main() -> int:
           f"mean len {lens.mean():.2f}): kernel {k_ms:.5f} ms, twin {p_ms:.5f} ms, "
           f"bound {bound:.5f} ms ({by}), max abs err {max_err:.3e}")
 
-    report = {"kernels": [{
+    din_entry = {
         "name": "din_attention", "route": "cuda",
         "source": "recalgorithm_tpu_torch/csrc/din_attention.cu",
         "replaces": "recalgorithm_tpu/ops/pallas/din_attention.py:35",
         "launches": serve_launches, "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
         "library_ms": None,
-    }]}
+    }
+
+    phase("6. full-width DIN trains on cuda through cli.main")
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    atexit.register(shutil.rmtree, work, ignore_errors=True)
+    zero_counts()
+    din_final = train_cli("DIN", os.path.join(work, "din"), DIN_TRAIN_STEPS)
+    din_train_launches = din_attention.launches
+    print(f"din_attention launches in DIN training: {din_train_launches}")
+    if din_train_launches <= 0 or not math.isfinite(din_final["loss"]):
+        raise AssertionError("DIN training never launched din_attention or lost finiteness")
+
+    phase(f"7. main path 2: full-width BST trains through cli.main on cuda, "
+          f"B={BST_BATCH}, {BST_STEPS} steps (eval every {BST_EVAL_EVERY}), "
+          f"then resumes to {BST_RESUME_STEPS}")
+    from recalgorithm_tpu_torch.cli.main import EVAL_BATCHES
+
+    bst_dir = os.path.join(work, "bst")
+    zero_counts()
+    first = train_cli("BST", bst_dir, BST_STEPS,
+                      ["--eval_every_steps", str(BST_EVAL_EVERY),
+                       "--save_checkpoints_steps", str(BST_EVAL_EVERY)])
+    resumed = train_cli("BST", bst_dir, BST_RESUME_STEPS,
+                        ["--eval_every_steps", str(BST_EVAL_EVERY),
+                         "--save_checkpoints_steps", str(BST_EVAL_EVERY)])
+    train_counts = bst_counts()
+    print(f"BST kernel launches on the training path: {train_counts}")
+    # inference forwards: every step-triggered eval, the final eval and the
+    # predictions of each run, EVAL_BATCHES batches each
+    evals = (BST_STEPS // BST_EVAL_EVERY + 2
+             + (BST_RESUME_STEPS // BST_EVAL_EVERY - BST_STEPS // BST_EVAL_EVERY) + 2)
+    want_counts = {"bst_attention_forward": EVAL_BATCHES * evals,
+                   "bst_attention_forward_save": BST_RESUME_STEPS,
+                   "bst_attention_backward": BST_RESUME_STEPS}
+    if train_counts != want_counts:
+        raise AssertionError(f"launches {train_counts}, want {want_counts} (one forward "
+                             "with P and one backward per train step, one forward "
+                             "without P per eval or predict batch)")
+    for final in (first, resumed):
+        if not all(math.isfinite(x) for x in final.values()):
+            raise AssertionError(f"non-finite eval metrics: {final}")
+    with open(os.path.join(bst_dir, "predictions.csv")) as f:
+        rows = list(csv.reader(f))
+    if rows[0] != ["read_comment_probabilities"] or len(rows) != 1 + EVAL_BATCHES * BST_BATCH:
+        raise AssertionError(f"predictions.csv: header {rows[0]}, {len(rows)} lines")
+    ckpts = sorted(os.listdir(os.path.join(bst_dir, "checkpoints")))
+    best_dir = Predictor.latest_best(bst_dir)
+    print(f"checkpoints {ckpts}; best export {best_dir}; predictions.csv "
+          f"{len(rows) - 1} rows; final eval after resume {resumed}")
+    if f"ckpt_{BST_RESUME_STEPS}.pt" not in ckpts or not os.path.exists(
+            os.path.join(best_dir, convert.EXPORT_FILE)):
+        raise AssertionError("missing checkpoint or best export")
+
+    phase("8. one BST train step on cuda vs the CPU; kernels at its inputs; "
+          "where a train step's time goes")
+    bst_report = bst_step_phase(best_dir, train_counts, card, kind)
+
+    phase("9. golden recipe (tests/golden_common.py) for BST on cuda")
+    with open(os.path.join(REPO, "tests", "golden_bands.json")) as f:
+        band = json.load(f)["BST"]
+    center, width = band["auc"]["read_comment_auc"], band["band"]["read_comment_auc"]
+    t0 = time.perf_counter()
+    auc = golden_bst("cuda", os.path.join(work, "golden"))
+    print(f"golden BST read_comment_auc {auc} (band {center} +- {width}), "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not abs(auc - center) <= width:
+        raise AssertionError(f"golden AUC {auc} outside {center} +- {width}")
+
+    phase("10. the BST export served over HTTP on cuda")
+    serve_bst(best_dir, gen)
+
+    report = {"kernels": [din_entry, *bst_report]}
     print()
     print(card)
     print(json.dumps(report))

@@ -7,10 +7,13 @@ mean``, ...).  The torch modules carry the same names, apart from these
 rules, which :func:`from_flax` and :func:`to_flax` apply both ways:
 
   * flax ``Dense`` kernels are ``(in, out)``; a torch ``Linear.weight`` is
-    their transpose;
-  * BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, ``mean``/``var`` ->
+    their transpose.  Only a leaf named ``weight`` is transposed: raw
+    parameters keep their flax names and layout (BST's ``w_q``/``w_k``/
+    ``w_v`` (H, d, d), ``w_o`` (H*d, d), ``position_embedding``);
+  * BatchNorm and LayerNorm ``scale``/``bias`` -> ``weight``/``bias`` (a
+    1-D ``weight`` goes back to ``scale``), ``mean``/``var`` ->
     ``running_mean``/``running_var``; torch's ``num_batches_tracked``
-    has no flax counterpart (eval reads the running statistics only);
+    has no flax counterpart;
   * ``FieldEmbedder_0`` -> ``embedder``, Dice's ``BatchNorm_0`` -> ``bn``,
     and tables sit in ``embed.tables``; table rows keep their ROW_ALIGN
     padding.
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 from typing import Mapping
 
 import numpy as np
@@ -82,32 +86,41 @@ def from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
 
 def to_flax(model: nn.Module) -> dict:
     """The inverse of :func:`from_flax`: a nested dict of numpy arrays."""
-    sd = model.state_dict()
-    bn_modules = {k.rsplit(".", 1)[0] for k in sd if k.endswith(".running_mean")}
     flat: dict[tuple, np.ndarray] = {}
-    for key, t in sd.items():
+    for key, t in model.state_dict().items():
         *mods, leaf = key.split(".")
         if leaf == "num_batches_tracked":
             continue
         arr = t.detach().cpu().numpy().copy()
-        owner = ".".join(mods)
         if mods[-2:] == ["embed", "tables"]:
             mods = mods[:-1]
         path = tuple(_MODULES_BACK.get(m, m) for m in mods)
         if leaf in _STATS_BACK:
             flat[("batch_stats",) + path + (_STATS_BACK[leaf],)] = arr
             continue
-        if leaf == "weight" and owner in bn_modules:
+        if leaf == "weight" and arr.ndim == 1:  # BatchNorm / LayerNorm
             leaf = "scale"
-        elif leaf == "weight" and arr.ndim == 2:
+        elif leaf == "weight":
             leaf, arr = "kernel", np.ascontiguousarray(arr.T)
         flat[("params",) + path + (leaf,)] = arr
     return _unflatten(flat)
 
 
-def save_export(model_dir: str, step: int, auc: float, model: nn.Module) -> str:
+def read_best(model_dir: str) -> list[tuple[float, int]]:
+    """The (auc, step) pairs of ``best_exports.json``, best first."""
+    best_path = os.path.join(model_dir, "best_exports.json")
+    if not os.path.exists(best_path):
+        return []
+    with open(best_path) as f:
+        return [(float(a), int(s)) for a, s in json.load(f)]
+
+
+def save_export(model_dir: str, step: int, auc: float, model: nn.Module,
+                keep: int | None = None) -> str:
     """Write ``export/best_<step>/`` (weights + metrics.json) and record it
-    in ``best_exports.json``; returns the export directory."""
+    in ``best_exports.json``; with ``keep``, only the ``keep`` highest-AUC
+    exports stay listed and on disk (BestExporter(exports_to_keep) parity).
+    Returns the export directory."""
     export_dir = os.path.join(model_dir, "export", f"best_{int(step)}")
     os.makedirs(export_dir, exist_ok=True)
     flat = _flatten(to_flax(model))
@@ -115,13 +128,14 @@ def save_export(model_dir: str, step: int, auc: float, model: nn.Module) -> str:
              **{"/".join(p): v for p, v in flat.items()})
     with open(os.path.join(export_dir, "metrics.json"), "w") as f:
         json.dump({"auc": auc, "step": int(step)}, f)
-    best_path = os.path.join(model_dir, "best_exports.json")
-    best = []
-    if os.path.exists(best_path):
-        with open(best_path) as f:
-            best = [tuple(x) for x in json.load(f)]
-    best = sorted(set(best) | {(auc, int(step))}, reverse=True)
-    with open(best_path, "w") as f:
+    best = sorted(set(read_best(model_dir)) | {(auc, int(step))}, reverse=True)
+    if keep is not None:
+        for _, old_step in best[keep:]:
+            if old_step != int(step):
+                shutil.rmtree(os.path.join(model_dir, "export", f"best_{old_step}"),
+                              ignore_errors=True)
+        best = best[:keep]
+    with open(os.path.join(model_dir, "best_exports.json"), "w") as f:
         json.dump(best, f)
     return export_dir
 

@@ -35,6 +35,7 @@ import dataclasses
 from typing import Mapping
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # Table rows are padded up to a multiple of this (the JAX package row-shards
@@ -88,9 +89,16 @@ class EmbeddingCollection(nn.Module):
         return self.specs[table].num_rows <= DENSE_LOOKUP_MAX_ROWS
 
     def _clip_gather(self, table: str, ids: torch.Tensor) -> torch.Tensor:
-        """``jnp.take(tab, ids, mode='clip')``: ids clamped into the table."""
+        """``jnp.take(tab, ids, mode='clip')``: ids clamped into the table.
+
+        ``F.embedding`` rather than ``tab[ids]``: the same rows, but its
+        backward sums the rows of repeated ids by segments, where the
+        indexing backward walks each id's duplicates in one thread.  A
+        WeChat-shaped batch repeats the PAD id about 170k times at B=4096
+        (sequences are mostly padding), which took that backward 51 ms on
+        an H100 (PERF.md)."""
         tab = self.tables[table]
-        return tab[ids.long().clamp(0, tab.shape[0] - 1)]
+        return F.embedding(ids.long().clamp(0, tab.shape[0] - 1), tab)
 
     def _dense_rows(self, table: str, ids: torch.Tensor) -> torch.Tensor:
         """Masked one-hot rule: rows of ids in [1, num_rows), zero elsewhere."""

@@ -18,7 +18,7 @@ from torch import nn
 
 from recalgorithm_tpu_torch.features.schema import Schema
 from recalgorithm_tpu_torch.models import common
-from recalgorithm_tpu_torch.ops.activations import Dice, PReLU, batch_norm
+from recalgorithm_tpu_torch.ops.activations import Dice, Dropout, PReLU, batch_norm
 from recalgorithm_tpu_torch.ops.attention import DINAttention
 from recalgorithm_tpu_torch.ops.mlp import Dense
 
@@ -68,7 +68,7 @@ class SequenceMLP(nn.Module):
             if batch_norm_:
                 self._add(f"bn_{i}", batch_norm(unit))
             if 0.0 < dropout_rate < 1.0:
-                self._add(f"dropout_{i}", nn.Dropout(dropout_rate))
+                self._add(f"dropout_{i}", Dropout(dropout_rate))
             width = unit
         self.logit = Dense(width, 1, generator)
 

@@ -8,8 +8,10 @@ tensors.  On the card there is no fallback: the kernel runs or the call
 raises.
 
 Weights are in torch ``Linear`` layout: w1 (64, 4H), b1 (64,), w2 (32, 64),
-b2 (32,), w3 (1, 32), b3 (1,).  Forward only: serving needs no gradient, and
-the wrapper refuses inputs that would want one.
+b2 (32,), w3 (1, 32), b3 (1,).  On the card the forward is the kernel and
+the backward is autograd through a recompute of the twin, as the JAX
+package's ``_fused_bwd`` takes ``jax.vjp`` of ``din_attention_reference``
+(the JAX package has no backward kernel for DIN attention).
 """
 
 from __future__ import annotations
@@ -83,26 +85,9 @@ def _check(query, keys, lengths, weights):
     for name, x in (("query", query), ("keys", keys)):
         if x.data_ptr() % 16:
             raise ValueError(f"din_attention: {name} is not 16-byte aligned")
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (query, keys, *weights)):
-        raise NotImplementedError(
-            "din_attention: the CUDA kernel has no backward yet; run under "
-            "torch.no_grad() / torch.inference_mode()")
 
 
-def din_attention(query: torch.Tensor,    # (B, H) f32
-                  keys: torch.Tensor,     # (B, T, H) f32
-                  lengths: torch.Tensor,  # (B,) int32
-                  w1, b1, w2, b2, w3, b3,
-                  use_softmax: bool = False) -> torch.Tensor:
-    """DIN attention pooling, (B, H).  CPU tensors: the plain twin.  CUDA
-    tensors: the kernel, counted in ``din_attention.launches``."""
-    if keys.device.type == "cpu":
-        return din_attention_reference(query, keys, lengths, w1, b1, w2, b2,
-                                       w3, b3, use_softmax)
-    if keys.device.type != "cuda":
-        raise ValueError(f"din_attention: no kernel for device {keys.device}")
-    weights = (w1, b1, w2, b2, w3, b3)
+def _launch(query, keys, lengths, weights, use_softmax: bool) -> torch.Tensor:
     _check(query, keys, lengths, weights)
     b, t, _ = keys.shape
     out = torch.empty(b, KERNEL_H, device=keys.device, dtype=torch.float32)
@@ -116,6 +101,49 @@ def din_attention(query: torch.Tensor,    # (B, H) f32
         raise RuntimeError(f"din_attention kernel launch failed: CUDA error {rc}")
     din_attention.launches += 1
     return out
+
+
+class _DINAttention(torch.autograd.Function):
+    """Kernel forward; backward by autograd through the twin's recompute."""
+
+    @staticmethod
+    def forward(ctx, query, keys, lengths, use_softmax, *weights):
+        ctx.use_softmax = use_softmax
+        ctx.save_for_backward(query, keys, lengths, *weights)
+        return _launch(query, keys, lengths, weights, use_softmax)
+
+    @staticmethod
+    def backward(ctx, grad):
+        query, keys, lengths, *weights = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        inputs = [x.detach().requires_grad_(n) for x, n in
+                  zip((query, keys, *weights), (need[0], need[1], *need[4:]))]
+        with torch.enable_grad():
+            out = din_attention_reference(inputs[0], inputs[1], lengths, *inputs[2:],
+                                          use_softmax=ctx.use_softmax)
+        wanted = [x for x in inputs if x.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, grad))
+        grads = [next(got) if x.requires_grad else None for x in inputs]
+        return grads[0], grads[1], None, None, *grads[2:]
+
+
+def din_attention(query: torch.Tensor,    # (B, H) f32
+                  keys: torch.Tensor,     # (B, T, H) f32
+                  lengths: torch.Tensor,  # (B,) int32
+                  w1, b1, w2, b2, w3, b3,
+                  use_softmax: bool = False) -> torch.Tensor:
+    """DIN attention pooling, (B, H).  CPU tensors: the plain twin.  CUDA
+    tensors: the kernel, counted in ``din_attention.launches``, inside an
+    autograd Function when a gradient is wanted."""
+    if keys.device.type == "cpu":
+        return din_attention_reference(query, keys, lengths, w1, b1, w2, b2,
+                                       w3, b3, use_softmax)
+    if keys.device.type != "cuda":
+        raise ValueError(f"din_attention: no kernel for device {keys.device}")
+    weights = (w1, b1, w2, b2, w3, b3)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (query, keys, *weights)):
+        return _DINAttention.apply(query, keys, lengths, use_softmax, *weights)
+    return _launch(query, keys, lengths, weights, use_softmax)
 
 
 din_attention.launches = 0
