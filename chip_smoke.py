@@ -187,19 +187,25 @@ def din_attention_bound_ms(lengths: np.ndarray, t: int, use_softmax: bool):
 
 def bst_bound_ms(lengths: np.ndarray, h: int, t: int, kind: str, p_bytes: int = 4):
     """Least time for a BST kernel's work on these lengths (source note of
-    csrc/bst_attention.cu), d = 16: per (b, h) with n valid keys 4 T n d FLOP
-    forward, 8 T n d backward, 2 T^2 d for a len = 0 row; bytes: q, k, v and
-    o (forward) or q, k, v, do, dq, dk, dv (backward) once, P once where the
-    kernel writes or reads it, lengths once."""
+    csrc/bst_attention.cu), d = 16, per (b, h) with n = min(len, T) valid
+    keys.  FLOP: 4 T n d forward, 8 T n d backward, 2 T^2 d for a len = 0
+    row.  Bytes: q and o (forward) or q, do, dq, dk and dv (backward) in
+    full; the first n rows of k and v (a len = 0 row: all T rows of v
+    forward, none backward, where its dl is 0 and P is the constant 1/T);
+    P in full where the forward writes it, its first n columns where the
+    backward reads it; lengths once."""
     d = 16
     n = np.clip(lengths, 0, t).astype(np.int64)
     per_row = {"forward": 4, "forward_save": 4, "backward": 8}[kind] * t * n * d
     flops = h * int(np.where(n > 0, per_row, 2 * t * t * d).sum())
     b = len(lengths)
-    tensors = 7 if kind == "backward" else 4
-    nbytes = 4 * tensors * b * h * t * d + 4 * b
-    if kind != "forward":
+    full = 5 if kind == "backward" else 2
+    kv_rows = int(n.sum()) + (0 if kind == "backward" else t * int((n == 0).sum()))
+    nbytes = 4 * (full * b * h * t * d + h * d * (int(n.sum()) + kv_rows) + b)
+    if kind == "forward_save":
         nbytes += b * h * t * t * p_bytes
+    elif kind == "backward":
+        nbytes += h * t * int(n.sum()) * p_bytes
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -408,6 +414,19 @@ BST_REPLACES = {"forward": "recalgorithm_tpu/ops/pallas/bst_attention.py:52",
                 "backward": "recalgorithm_tpu/ops/pallas/bst_attention.py:95"}
 
 
+def zero_gradient_params(cfg) -> set[str]:
+    """The BST parameters whose true gradient is 0 in a train step: with no
+    activation in the tower, a shift that reaches a train-mode BatchNorm
+    through linear maps only is taken out by its batch mean.  That holds for
+    every dense bias, every BatchNorm bias but the last, and the last block's
+    ln2 bias, which sum pooling makes one constant for the whole batch."""
+    if cfg.mlp_activation != "none" or not cfg.batch_norm:
+        raise ValueError("the zero gradients follow from a linear tower with BatchNorm")
+    n = len(cfg.hidden_units)
+    return ({f"dense_{i}.bias" for i in range(n)} | {f"bn_{i}.bias" for i in range(n - 1)}
+            | {f"transformer_{cfg.num_transformer_block - 1}.ln2.bias"})
+
+
 def bst_step_phase(best_dir: str, train_counts: dict, card: str, kind: str) -> list[dict]:
     """One full-width BST train step (loss and every gradient) on cuda held
     against the same step on the CPU, dropout off so both draw nothing; the
@@ -460,8 +479,18 @@ def bst_step_phase(best_dir: str, train_counts: dict, card: str, kind: str) -> l
           f"max abs gradient difference over {len(cpu_grads)} tensors {worst:.3e}")
     if not (math.isfinite(gpu_loss) and abs(gpu_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)):
         raise AssertionError("the cuda train step's loss is not the CPU's within rtol 1e-5")
-    if worst > 1e-4:
-        raise AssertionError(f"a gradient differs from the CPU's by {worst:.3e} > 1e-4")
+    # Each gradient within rtol 1e-4 and atol 1e-5 x its own max|g|, but for
+    # the tensors whose true gradient is 0, where both sides hold rounding
+    # noise: they are held to 1e-5 x the step's largest gradient.
+    zero = zero_gradient_params(BSTConfig())
+    step_scale = max(float(g.abs().max()) for g in cpu_grads.values())
+    for name, want in cpu_grads.items():
+        got = gpu_grads[name]
+        scale = step_scale if name in zero else float(want.abs().max())
+        if not torch.allclose(got, want, rtol=GRAD_TOL["rtol"], atol=GRAD_TOL["atol"] * scale):
+            raise AssertionError(
+                f"gradient of {name}: max abs err {float((got - want).abs().max()):.3e} "
+                f"beyond {GRAD_TOL} x {scale:.3g}")
 
     q, k, v, lengths = (captured[x] for x in ("q", "k", "v", "lengths"))
     g = torch.from_numpy(np.random.default_rng(0).normal(size=tuple(q.shape))

@@ -43,14 +43,20 @@
 // Bound (H100 SXM: 3.35 TB/s, 67 TFLOP/s f32 off the tensor cores).  Per
 // (b, h) with n = min(len, T) valid keys, the forward does 4 T n d FLOP
 // (scores, P v) and the backward 8 T n d (P^T do, dp, dl k, dl^T q); a len = 0
-// row does 2 T^2 d instead (the uniform mean of v, and P^T do).  Bytes:
-//   forward  4 (4 T d)                (q, k, v in, o out; + 4 B for lengths)
-//   + P      + 4 T^2 (f32) or 2 T^2 (bf16)
-//   backward 4 (7 T d) + P            (q, k, v, do, P in; dq, dk, dv out)
-// At B=4096, H=3, T=51, d=16 every one is bound by bytes: 160 MB (48 us),
-// 288 MB (86 us) and 409 MB (122 us) with f32 P.  chip_smoke.py computes the
-// bound from each run's lengths.  No tensor cores: d = 16 and T <= 64 give
-// products too thin for wgmma at one (b, h) a block.
+// row does 2 T^2 d instead (the uniform mean of v, and P^T do).  Bytes, only
+// what the function needs (+ 4 B of lengths per b):
+//   forward  4 (2 T d + 2 n d)        (q in, o out; the n valid rows of k, v;
+//                                      a len = 0 row: all T rows of v, no k)
+//   + P      + 4 T^2 (f32) or 2 T^2 (bf16), written in full
+//   backward 4 (5 T d + 2 n d) + 4 T n (f32 P) or 2 T n (bf16 P)
+//                                     (q, do in, dq, dk, dv out; the n valid
+//                                      rows of k, v and columns of P; a len = 0
+//                                      row needs none: its dl is 0, P is 1/T)
+// With every key valid (n = T = 51) at B=4096, H=3, d=16 that is 160, 288 and
+// 409 MB, all bound by bytes; the train path's shorter histories need far
+// less.  chip_smoke.py computes the bound from each run's lengths.  No tensor
+// cores: d = 16 and T <= 64 give products too thin for wgmma at one (b, h) a
+// block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -13,7 +13,7 @@ Responsibilities (the reference's Estimator usage, wide_and_deep.py:331-376):
   * checkpoints (``torch.save``: model, optimizer, step, dropout generator)
     every ``save_checkpoints_steps``, the last 3 kept, resume from the
     latest; a best-exporter keyed on the first task's eval AUC that keeps
-    the ``keep_best`` best exports (BestExporter(exports_to_keep=5) parity);
+    the BEST_EXPORTS_KEPT best exports (BestExporter(exports_to_keep=5) parity);
   * SIGTERM: finish the step in flight, checkpoint, return without the final
     eval.
 
@@ -46,6 +46,7 @@ from recalgorithm_tpu_torch.train import metrics as M
 from recalgorithm_tpu_torch.utils.summary import SummaryWriter
 
 CHECKPOINTS_KEPT = 3
+BEST_EXPORTS_KEPT = 5  # BestExporter(exports_to_keep=5)
 
 
 @dataclasses.dataclass
@@ -80,9 +81,7 @@ class TrainerConfig:
     # (wide_and_deep.py:350-355); 0 disables (the final eval always runs)
     eval_throttle_secs: float = 0.0
     save_checkpoints_steps: int = 1000
-    keep_best: int = 5  # BestExporter(exports_to_keep=5)
-    seed: int = 42      # seeds the dropout generator (seed + 1, as the JAX loop)
-    handle_sigterm: bool = True
+    seed: int = 42  # seeds the dropout generator (seed + 1, as the JAX loop)
 
 
 class Trainer:
@@ -222,20 +221,18 @@ class Trainer:
         resumed run is fed the batches after the restored step).  Returns the
         final eval metrics (empty when preempted or without eval batches)."""
         cfg = self.config
-        checkpointer = _Checkpointer(cfg.model_dir, cfg.keep_best)
+        checkpointer = _Checkpointer(cfg.model_dir)
         checkpointer.restore_latest(self)
         summary = SummaryWriter(os.path.join(cfg.model_dir, "summaries"))
 
         # preemption notice (SIGTERM): finish the step in flight, save, skip
         # the final eval.  Installs only in the main thread; restored on return.
         preempted = {"flag": False}
-        prev_handler = None
-        if cfg.handle_sigterm:
-            try:
-                prev_handler = signal.signal(
-                    signal.SIGTERM, lambda signum, frame: preempted.update(flag=True))
-            except ValueError:  # not the main thread
-                prev_handler = None
+        try:
+            prev_handler = signal.signal(
+                signal.SIGTERM, lambda signum, frame: preempted.update(flag=True))
+        except ValueError:  # not the main thread
+            prev_handler = None
 
         try:
             t0 = last_eval_time = time.time()
@@ -298,11 +295,10 @@ class _Checkpointer:
     """``torch.save`` checkpoints (the last CHECKPOINTS_KEPT kept) and the
     best-AUC exporter."""
 
-    def __init__(self, model_dir: str, keep_best: int):
+    def __init__(self, model_dir: str):
         self.model_dir = os.path.abspath(model_dir)
         self.dir = os.path.join(self.model_dir, "checkpoints")
         os.makedirs(self.dir, exist_ok=True)
-        self.keep_best = keep_best
 
     @staticmethod
     def steps(ckpt_dir: str) -> list[int]:
@@ -336,9 +332,9 @@ class _Checkpointer:
         trainer.generator.set_state(ck["generator"])
 
     def maybe_export_best(self, trainer: Trainer, auc: float) -> None:
-        """Keep the ``keep_best`` highest-AUC exports (BestExporter parity)."""
+        """Keep the BEST_EXPORTS_KEPT highest-AUC exports (BestExporter parity)."""
         best = convert.read_best(self.model_dir)
-        if len(best) >= self.keep_best and auc <= min(a for a, _ in best):
+        if len(best) >= BEST_EXPORTS_KEPT and auc <= min(a for a, _ in best):
             return
         convert.save_export(self.model_dir, trainer.step, auc, trainer.model,
-                            keep=self.keep_best)
+                            keep=BEST_EXPORTS_KEPT)
