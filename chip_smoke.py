@@ -13,8 +13,9 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      events beside its bound and, for BST attention, beside
      scaled_dot_product_attention: DIN attention at B = 37, 256, 4096; the
      BST forward, P (f32 and bf16) and dq/dk/dv at (B, H, T) = (37|256|4096,
-     3, 51) and (4096, 2, 9) with uniform lengths, and at (4096, 3, 51) with
-     the BST train path's length mix;
+     3, 51) and (4096, 2, 9) with uniform lengths, and at (8, 3, 51), a
+     served batch's size, and (4096, 3, 51) with the BST train path's length
+     mix;
   4. main path 1: full-width DIN (DINConfig defaults, real WeChat table
      sizes, random weights from a seed) exported, served by the port's
      build_server on cuda, 64 HTTP requests from 4 threads, every response
@@ -81,9 +82,11 @@ PROFILE_BATCHES = (8, 256, 4096)
 PROFILE_ITERS = 20
 PROFILE_TOP = 8
 # BST kernels against their twins: shapes (B, H, T) with uniform lengths,
-# then the main path's shape with its length mix (bst_case); the gradient
-# bars of the JAX package's own BST kernel test, 2e-2 where P was saved in bf16
+# then a served batch's and the main path's shapes with the train path's
+# length mix (bst_case); the gradient bars of the JAX package's own BST kernel
+# test, 2e-2 where P was saved in bf16
 BST_SHAPES = ((37, 3, 51), (256, 3, 51), (4096, 3, 51), (4096, 2, 9))
+BST_SERVED_MIX = (8, 3, 51)
 BST_MAIN_MIX = (4096, 3, 51)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -708,7 +711,9 @@ def main() -> int:
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if any(w in line for w in ("registers", "spill", "smem", "error")):
+            if "entry function" in line:  # names the kernel of the lines below it
+                print(f"  {name}: {line.strip()[:120]}")
+            elif any(w in line for w in ("registers", "spill", "smem", "error")):
                 print(f"  {name}: {line.strip()}")
 
     phase(f"3. kernel vs plain twin on the card (tolerance {TOL})")
@@ -732,7 +737,8 @@ def main() -> int:
             print(row, flush=True)
     print("  BST attention: forward, P (f32, bf16) and dq/dk/dv vs the twin; "
           f"gradients {GRAD_TOL} x max|g|, bf16 P {BF16_TOL}")
-    for b, h, t, mix in (*((*s, False) for s in BST_SHAPES), (*BST_MAIN_MIX, True)):
+    for b, h, t, mix in (*((*s, False) for s in BST_SHAPES), (*BST_SERVED_MIX, True),
+                         (*BST_MAIN_MIX, True)):
         r = bst_kernels_vs_twins(*bst_case(b, h, t, seed=b + t, main_mix=mix), timed=True)
         lens = "the train path's length mix" if mix else "uniform lengths"
         print(f"  B={b} H={h} T={t}, {lens}: max abs err {json.dumps(r['err'])}", flush=True)

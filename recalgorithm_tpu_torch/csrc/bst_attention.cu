@@ -26,14 +26,30 @@
 // (B, H, T, d), f32, contiguous, lengths (B,) int32, P (B, H, T, T), any B.
 //
 // Design.
-//   * Forward (simple first): one block of 64 threads per (b, h).  K and V
-//     (T x 16 floats each) are staged into shared memory with
-//     float4 copies; thread i owns query row i, keeps it in registers and
-//     makes three passes over the valid keys (row max, normaliser, then
-//     p_ij = exp(s_ij - m) / l and o_i += p_ij v_j), recomputing the 16-wide
-//     dot product each pass rather than keeping a 64-entry score row in
-//     registers.  When P is asked for, rows go through a shared (T, T+1) tile
-//     so the write to device memory is coalesced.
+//   * Forward: bound by bytes, and on the train path most keys are masked
+//     (mean n 7.6 of T = 51).  One warp per (b, h), FWD_WARPS = 4 pairs a
+//     block, no block-wide barrier.  The warp stages only the n valid rows of
+//     k and v (float4 copies, chunks of KC = 32 keys); lane l owns query rows
+//     l and l + 32 in turn, keeps q_i in registers (direct float4 loads, as o
+//     is stored) and makes one online-softmax pass over the staged keys: one
+//     dot a key, a running max, a rescaled normaliser and o accumulator; the
+//     k_j and v_j reads are broadcasts.  A second chunk (n > 32) carries the
+//     state over.  A len = 0 pair stages nothing: o_i is the mean of all T
+//     rows of v, taken once, and P is 1/T.
+//     The saving forward then writes P without a (T, T) tile: q goes where
+//     the chunk was, each row's final max and 1/l sit beside it, and for a
+//     block of rows G = 8, 16 or 32 lanes a row (by n) compute the valid
+//     keys' P_ij = exp(s_ij - m_i) / l_i into a tile of n columns; the warp
+//     then writes those rows of P once, lanes on consecutive elements, 0 at
+//     masked keys.  Writing the valid block first and the zeros after, each
+//     by its own stores, was slower in f32 than a block per pair on an H100.
+//     ptxas (sm_90a), no spills: inference 79 registers, 16,448 B of static
+//     shared memory a block (4,112 a warp); saving 80 registers, 34,816 B
+//     (8,704 a warp).  Registers allow 24 warps an SM (6 blocks; for the
+//     saving forward shared memory allows the same).  A warp waits on its
+//     loads in sequence (lengths, key chunk, q rows) with nothing of the next
+//     pair in flight, and the saving forward's P phase runs after the pass;
+//     PERF.md has the times.
 //   * Backward: bound by bytes (below), and on the train path most keys are
 //     masked (mean n 7.6 of T = 51).  One warp per (b, h), BWD_WARPS = 4
 //     pairs a block, no block-wide barrier (only __syncwarp).  Query rows go
@@ -91,15 +107,15 @@
 namespace {
 
 constexpr int D = 16;            // head width
-constexpr int T_MAX = 64;        // longest sequence; one thread per row
-constexpr int THREADS = T_MAX;
-constexpr int PP = T_MAX + 1;    // row pitch of the staged T x T tile
+constexpr int T_MAX = 64;        // longest sequence
+constexpr int FWD_WARPS = 4;     // forward: (b, h) pairs a block, one warp each
 constexpr int BWD_WARPS = 4;     // backward: (b, h) pairs a block, one warp each
 constexpr int ROWS = 16;         // backward: query rows staged a batch
-constexpr int KC = 32;           // backward: keys a chunk
+constexpr int KC = 32;           // keys a chunk (forward and backward)
 constexpr int TP = KC + 2;       // backward: row pitch of a warp's P / dl tile
 constexpr float SCALE = 0.25f;   // 1 / sqrt(D), exact
 constexpr float NEG_INF = -4294967295.0f;  // -(2^32) + 1, the reference's mask
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int clip_len(int len, int t) {
   return len < 0 ? 0 : (len > t ? t : len);
@@ -151,11 +167,17 @@ __device__ __forceinline__ void store_row(float* row, const float (&a)[D]) {
   }
 }
 
-// rows x D floats, row-major, global -> shared, float4 copies
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int rows) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  for (int x = threadIdx.x; x < rows * (D / 4); x += blockDim.x) d4[x] = s4[x];
+__device__ __forceinline__ void zero(float (&a)[D]) {
+#pragma unroll
+  for (int c = 0; c < D; ++c) a[c] = 0.f;
+}
+
+// rows x D floats, global -> shared, float4 copies by the lanes of one warp
+__device__ __forceinline__ void warp_stage(float* dst, const float* __restrict__ src, int rows,
+                                           int lane) {
+  for (int x = lane; x < rows * (D / 4); x += 32) {
+    reinterpret_cast<float4*>(dst)[x] = reinterpret_cast<const float4*>(src)[x];
+  }
 }
 
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
@@ -163,55 +185,156 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, float x) { *p = __float2bf
 __device__ __forceinline__ float get(const float* p) { return *p; }
 __device__ __forceinline__ float get(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
-template <bool SAVE, typename PT>
-__global__ void __launch_bounds__(THREADS)
-bst_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const int* __restrict__ lengths,
-                         float* __restrict__ out, PT* __restrict__ probs, int H, int T) {
-  __shared__ __align__(16) float ks[T_MAX * D];
-  __shared__ __align__(16) float vs[T_MAX * D];
-  __shared__ float ps[SAVE ? T_MAX * PP : 1];
-  const int bh = blockIdx.x;
-  const size_t base = static_cast<size_t>(bh) * T * D;
-  const int len = clip_len(lengths[bh / H], T);
-  const int i = threadIdx.x;
-  stage(ks, k + base, T);
-  stage(vs, v + base, T);
-  __syncthreads();
+// One warp's shared memory in the forward: the k and v rows of one chunk of
+// KC keys, then (saving forward) the pair's q rows in the same place; and for
+// the saving forward a tile of P's valid columns for a block of rows, and each
+// query row's final max and 1 / normaliser.
+constexpr int TILE = 1024;       // saving forward: floats of a warp's P tile
+template <bool SAVE>
+struct __align__(16) FwdWarp {
+  float buf[2 * KC * D];
+  float tile[SAVE ? TILE : 1];
+  float rowmax[SAVE ? T_MAX : 1];
+  float rowinv[SAVE ? T_MAX : 1];
+};
+static_assert(2 * KC * D >= T_MAX * D, "q rows must fit where the key chunk was");
+static_assert(TILE >= T_MAX * 16, "a P tile must hold 16 rows of 64 keys");
 
-  if (i < T) {
-    float acc[D];
-#pragma unroll
-    for (int c = 0; c < D; ++c) acc[c] = 0.f;
-    if (len == 0) {  // every score is NEG_INF: uniform over all T keys
-      const float p = 1.0f / static_cast<float>(T);
-      for (int j = 0; j < T; ++j) {
-        axpy(acc, p, vs + j * D);
-        if (SAVE) ps[i * PP + j] = p;
-      }
-    } else {
-      float qi[D];
-      load_row(qi, q + base + i * D);
-      float m = NEG_INF;
-      for (int j = 0; j < len; ++j) m = fmaxf(m, dot(qi, ks + j * D) * SCALE);
-      float l = 0.f;
-      for (int j = 0; j < len; ++j) l += expf(dot(qi, ks + j * D) * SCALE - m);
-      for (int j = 0; j < len; ++j) {
-        const float p = expf(dot(qi, ks + j * D) * SCALE - m) / l;
-        axpy(acc, p, vs + j * D);
-        if (SAVE) ps[i * PP + j] = p;
-      }
-      if (SAVE) {  // masked keys: exp(NEG_INF - m) is exactly 0
-        for (int j = len; j < T; ++j) ps[i * PP + j] = 0.f;
+// len = 0: every score is NEG_INF, so each row is the mean of all T rows of v.
+// Lane l sums component l % 16 over the rows of parity l / 16.
+__device__ __forceinline__ void fwd_uniform(const float* __restrict__ v, float* __restrict__ out,
+                                            int T, int lane) {
+  const int c = lane & (D - 1);
+  float sum = 0.f;
+  for (int j = lane >> 4; j < T; j += 2) sum += v[j * D + c];
+  sum += __shfl_xor_sync(FULL, sum, 16);
+  const float mean = sum * (1.0f / static_cast<float>(T));
+  const int c4 = (lane & 3) * 4;  // float4 x of the row holds components 4 (x % 4) ..
+  const float4 o = make_float4(__shfl_sync(FULL, mean, c4), __shfl_sync(FULL, mean, c4 + 1),
+                               __shfl_sync(FULL, mean, c4 + 2), __shfl_sync(FULL, mean, c4 + 3));
+  for (int x = lane; x < T * (D / 4); x += 32) reinterpret_cast<float4*>(out)[x] = o;
+}
+
+// P of a pair with n >= 1 valid keys, in blocks of rows that fit the tile.
+// First P_ij = exp(q_i . k_j / sqrt(d) - m_i) / l_i for the valid keys into
+// the tile: G lanes a row on G consecutive keys, 32 / G rows at once, k_j in
+// registers, q_i a shared-memory broadcast from buf.  Then the block's rows
+// of P are written once, lanes on consecutive elements of the flattened
+// (T, T) block, 0 at the masked keys.
+template <int G, typename PT>
+__device__ __forceinline__ void fwd_probs(FwdWarp<true>& s, const float* __restrict__ k,
+                                          PT* __restrict__ p, int n, int T, int lane) {
+  constexpr int R = 32 / G;
+  const int pitch = (n + G - 1) / G * G;
+  const int rows = TILE / pitch;
+  const int jj = lane % G, rr = lane / G;
+  for (int r0 = 0; r0 < T; r0 += rows) {
+    const int r1 = min(T, r0 + rows);
+    for (int j = jj; j < n; j += G) {
+      float kj[D];
+      load_row(kj, k + j * D);
+      for (int i = r0 + rr; i < r1; i += R) {
+        s.tile[(i - r0) * pitch + j] =
+            expf(dot(kj, s.buf + i * D) * SCALE - s.rowmax[i]) * s.rowinv[i];
       }
     }
-    store_row(out + base + i * D, acc);
+    __syncwarp();
+    int i = r0 + lane / T, j = lane % T;  // row and key of element x
+    for (int x = r0 * T + lane; x < r1 * T; x += 32) {
+      put(p + x, j < n ? s.tile[(i - r0) * pitch + j] : 0.f);
+      j += 32;
+      while (j >= T) {
+        j -= T;
+        ++i;
+      }
+    }
+    __syncwarp();  // the next block of rows overwrites the tile
   }
-  if (SAVE) {
-    __syncthreads();
-    PT* dst = probs + static_cast<size_t>(bh) * T * T;
-    for (int x = threadIdx.x; x < T * T; x += blockDim.x) {
-      put(dst + x, ps[(x / T) * PP + x % T]);
+}
+
+template <bool SAVE, typename PT>
+__global__ void __launch_bounds__(FWD_WARPS * 32)
+bst_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const int* __restrict__ lengths,
+                         float* __restrict__ out, PT* __restrict__ probs, int H, int T,
+                         int pairs) {
+  __shared__ FwdWarp<SAVE> warps[FWD_WARPS];
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.x * FWD_WARPS + (threadIdx.x >> 5);
+  if (bh >= pairs) return;  // whole warps only: no block-wide barrier follows
+  FwdWarp<SAVE>& s = warps[threadIdx.x >> 5];
+  const size_t base = static_cast<size_t>(bh) * T * D;
+  q += base; k += base; v += base; out += base;
+  const int n = clip_len(lengths[bh / H], T);
+  if (n == 0) {
+    fwd_uniform(v, out, T, lane);
+  } else {
+    // lane l owns query rows l and l + 32; one online-softmax pass over the
+    // staged keys, chunk by chunk (a second chunk only when n > KC)
+    float* ks = s.buf;
+    float* vs = s.buf + KC * D;
+    int staged = -1;
+    for (int r0 = 0; r0 < T; r0 += 32) {
+      const int i = r0 + lane;
+      float qi[D], acc[D];
+      zero(acc);
+      if (i < T) load_row(qi, q + i * D); else zero(qi);
+      float m = NEG_INF, l = 0.f;  // exp(NEG_INF - s) is exactly 0
+      for (int c = 0; KC * c < n; ++c) {
+        const int nc = min(KC, n - KC * c);
+        if (staged != c) {  // warp-uniform
+          __syncwarp();
+          warp_stage(ks, k + KC * c * D, nc, lane);
+          warp_stage(vs, v + KC * c * D, nc, lane);
+          __syncwarp();
+          staged = c;
+        }
+        for (int jj = 0; jj < nc; ++jj) {
+          const float sc = dot(qi, ks + jj * D) * SCALE;
+          const float mn = fmaxf(m, sc);
+          const float corr = expf(m - mn);
+          const float p = expf(sc - mn);
+          l = fmaf(l, corr, p);
+          const float4* vr = reinterpret_cast<const float4*>(vs + jj * D);
+#pragma unroll
+          for (int w = 0; w < D / 4; ++w) {
+            const float4 x = vr[w];
+            acc[4 * w] = fmaf(p, x.x, acc[4 * w] * corr);
+            acc[4 * w + 1] = fmaf(p, x.y, acc[4 * w + 1] * corr);
+            acc[4 * w + 2] = fmaf(p, x.z, acc[4 * w + 2] * corr);
+            acc[4 * w + 3] = fmaf(p, x.w, acc[4 * w + 3] * corr);
+          }
+          m = mn;
+        }
+      }
+      if (i < T) {
+        const float il = 1.0f / l;
+#pragma unroll
+        for (int c = 0; c < D; ++c) acc[c] *= il;
+        store_row(out + i * D, acc);
+        if constexpr (SAVE) {
+          s.rowmax[i] = m;
+          s.rowinv[i] = il;
+        }
+      }
+    }
+  }
+  if constexpr (SAVE) {
+    PT* p = probs + static_cast<size_t>(bh) * T * T;
+    if (n == 0) {  // uniform over all T keys
+      const float u = 1.0f / static_cast<float>(T);
+      for (int x = lane; x < T * T; x += 32) put(p + x, u);
+    } else {
+      __syncwarp();  // the key chunk is dead: q takes its place
+      warp_stage(s.buf, q, T, lane);
+      __syncwarp();
+      if (n <= 8) {
+        fwd_probs<8>(s, k, p, n, T, lane);
+      } else if (n <= 16) {
+        fwd_probs<16>(s, k, p, n, T, lane);
+      } else {
+        fwd_probs<32>(s, k, p, n, T, lane);
+      }
     }
   }
 }
@@ -222,24 +345,11 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ void zero(float (&a)[D]) {
-#pragma unroll
-  for (int c = 0; c < D; ++c) a[c] = 0.f;
-}
-
 __device__ __forceinline__ void fma4(float* acc, float a, const float4 x) {
   acc[0] = fmaf(a, x.x, acc[0]);
   acc[1] = fmaf(a, x.y, acc[1]);
   acc[2] = fmaf(a, x.z, acc[2]);
   acc[3] = fmaf(a, x.w, acc[3]);
-}
-
-// rows x D floats, global -> shared, float4 copies by the lanes of one warp
-__device__ __forceinline__ void warp_stage(float* dst, const float* __restrict__ src, int rows,
-                                           int lane) {
-  for (int x = lane; x < rows * (D / 4); x += 32) {
-    reinterpret_cast<float4*>(dst)[x] = reinterpret_cast<const float4*>(src)[x];
-  }
 }
 
 // One warp's shared memory in the backward: a batch of ROWS query rows of q
@@ -463,16 +573,17 @@ extern "C" int bst_attention_forward(const float* q, const float* k, const float
   if (bad_shape(B, H, T) || save < 0 || save > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = B * H;
+  const int pairs = B * H;
+  const int blocks = (pairs + FWD_WARPS - 1) / FWD_WARPS;
   if (save == 0) {
-    bst_attention_fwd_kernel<false, float><<<blocks, THREADS, 0, st>>>(
-        q, k, v, lengths, out, nullptr, H, T);
+    bst_attention_fwd_kernel<false, float><<<blocks, FWD_WARPS * 32, 0, st>>>(
+        q, k, v, lengths, out, nullptr, H, T, pairs);
   } else if (save == 1) {
-    bst_attention_fwd_kernel<true, float><<<blocks, THREADS, 0, st>>>(
-        q, k, v, lengths, out, static_cast<float*>(probs), H, T);
+    bst_attention_fwd_kernel<true, float><<<blocks, FWD_WARPS * 32, 0, st>>>(
+        q, k, v, lengths, out, static_cast<float*>(probs), H, T, pairs);
   } else {
-    bst_attention_fwd_kernel<true, __nv_bfloat16><<<blocks, THREADS, 0, st>>>(
-        q, k, v, lengths, out, static_cast<__nv_bfloat16*>(probs), H, T);
+    bst_attention_fwd_kernel<true, __nv_bfloat16><<<blocks, FWD_WARPS * 32, 0, st>>>(
+        q, k, v, lengths, out, static_cast<__nv_bfloat16*>(probs), H, T, pairs);
   }
   return static_cast<int>(cudaGetLastError());
 }

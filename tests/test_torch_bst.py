@@ -58,9 +58,15 @@ def _torch_grads(fn, q, k, v, g, lengths):
     return out.detach().numpy(), [x.grad.numpy() for x in leaves]
 
 
-@pytest.mark.parametrize("shape", [(37, 3, 51), (130, 3, 51), (5, 2, 9)])
-def test_bst_mha_matches_jax(shape):
+@pytest.mark.parametrize("shape,forced", [
+    ((37, 3, 51), ()), ((130, 3, 51), ()), ((5, 2, 9), ()),
+    ((6, 3, 64), ()),
+    # where the CUDA forward changes branch: P's lanes a row (n <= 8, <= 16)
+    # and a second key chunk (n > 32)
+    ((9, 3, 51), (1, 8, 9, 16, 17, 31, 32, 33, 51))])
+def test_bst_mha_matches_jax(shape, forced):
     q, k, v, g, lengths = _qkv(*shape, seed=sum(shape))
+    lengths[:len(forced)] = forced
     want_ref, grads_ref = _jax_grads(mha_reference, q, k, v, g, lengths)
     want_fused, grads_fused = _jax_grads(
         lambda q, k, v, n: bst_mha_fused(q, k, v, n, interpret=True), q, k, v, g, lengths)

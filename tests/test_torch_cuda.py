@@ -92,26 +92,34 @@ def test_din_attention_gradients_match_twin(cuda):
                                    rtol=1e-4, atol=1e-5 * max(scale, 1.0))
 
 
-def _bst_case(b, h, t, seed, main_mix=False):
+def _bst_case(b, h, t, seed, main_mix=False, forced=None):
     """Uniform lengths in [0, t], or with ``main_mix`` the BST train path's:
     history min(geometric(0.15), 50) + 1, clipped to t, with rows of n = 0,
-    1, 31, 32, 33 and t forced in (one and two key chunks of a warp)."""
+    1, 31, 32, 33 and t forced in (one and two key chunks of a warp);
+    ``forced`` replaces the lengths forced into the first rows."""
     rng = np.random.default_rng(seed)
     q, k, v, g = (torch.from_numpy(rng.normal(size=(b, h, t, 16)).astype(np.float32)).cuda()
                   for _ in range(4))
     if main_mix:
         lengths = np.minimum(np.minimum(rng.geometric(0.15, b), 50) + 1, t).astype(np.int32)
-        lengths[:6] = (0, 1, 31, 32, 33, t)
+        forced = (0, 1, 31, 32, 33, t) if forced is None else forced
     else:
         lengths = rng.integers(0, t + 1, b).astype(np.int32)
-        lengths[:3] = (0, t, 1)
+        forced = (0, t, 1) if forced is None else forced
+    lengths[:len(forced)] = forced
     return q, k, v, g, torch.from_numpy(lengths).cuda()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(37, 3, 51), (256, 3, 51), (5, 2, 9)])
-def test_bst_forward_kernels_match_twin(cuda, shape):
-    q, k, v, _, lengths = _bst_case(*shape, seed=sum(shape))
+@pytest.mark.parametrize("shape,main_mix,forced", [
+    ((37, 3, 51), False, None), ((256, 3, 51), False, None), ((5, 2, 9), False, None),
+    ((4099, 3, 51), True, None),  # B not a multiple of the warps a block
+    ((129, 3, 64), False, None), ((1027, 3, 9), False, None),
+    ((1, 3, 51), False, (33,)),   # one pair's block, two key chunks
+    ((1, 2, 64), False, (0,))])
+def test_bst_forward_kernels_match_twin(cuda, shape, main_mix, forced):
+    q, k, v, _, lengths = _bst_case(*shape, seed=sum(shape), main_mix=main_mix, forced=forced)
+    t = shape[2]
     want = bkern.bst_mha_reference(q, k, v, lengths)
     probs = bkern.attention_probs_reference(q, k, lengths)
     n0, n1 = bkern.bst_attention_forward.launches, bkern.bst_attention_forward_save.launches
@@ -127,9 +135,16 @@ def test_bst_forward_kernels_match_twin(cuda, shape):
     assert p16.dtype == torch.bfloat16
     np.testing.assert_allclose(p16.float().cpu().numpy(), probs.cpu().numpy(),
                                rtol=0, atol=2e-2)
-    # len = 0 attends uniformly over all T keys
-    np.testing.assert_allclose(got[0].cpu().numpy(),
-                               v[0].mean(dim=1, keepdim=True).expand_as(v[0]).cpu().numpy(),
+    # masked keys get exactly 0; a len = 0 pair attends uniformly over all T
+    # keys, P exactly 1/T (f32, and 1/T rounded to bf16)
+    zero = lengths == 0
+    masked = (torch.arange(t, device=q.device)[None, :] >= lengths[:, None]) & ~zero[:, None]
+    masked = masked[:, None, None, :].expand_as(p32)
+    assert not p32[masked].any() and not p16[masked].any()
+    assert (p32[zero] == torch.tensor(1.0 / t)).all()
+    assert (p16[zero] == torch.tensor(1.0 / t).to(torch.bfloat16)).all()
+    np.testing.assert_allclose(got[zero].cpu().numpy(),
+                               v[zero].mean(dim=2, keepdim=True).expand_as(v[zero]).cpu().numpy(),
                                **TOL)
 
 
