@@ -11,7 +11,8 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
   2. build the CUDA kernels from recalgorithm_tpu_torch/csrc into build/;
   3. each kernel against its plain torch twin on the card, timed with CUDA
      events beside its bound and, for BST attention, beside
-     scaled_dot_product_attention: DIN attention at B = 37, 256, 4096; the
+     scaled_dot_product_attention: DIN attention at B = 8, 37, 256, 4096
+     with uniform lengths and at B = 4096 with the serving length mix; the
      BST forward, P (f32 and bf16) and dq/dk/dv at (B, H, T) = (37|256|4096,
      3, 51) and (4096, 2, 9) with uniform lengths, and at (8, 3, 51), a
      served batch's size, and (4096, 3, 51) with the BST train path's length
@@ -81,6 +82,8 @@ SEQ = "his_read_comment_7d_seq"
 PROFILE_BATCHES = (8, 256, 4096)
 PROFILE_ITERS = 20
 PROFILE_TOP = 8
+# DIN attention against its twin, all timed: (B, serving length mix?)
+DIN_CASES = ((8, False), (37, False), (256, False), (4096, False), (4096, True))
 # BST kernels against their twins: shapes (B, H, T) with uniform lengths,
 # then a served batch's and the main path's shapes with the train path's
 # length mix (bst_case); the gradient bars of the JAX package's own BST kernel
@@ -629,15 +632,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_attention_case(b: int, seed: int):
+def random_attention_case(b: int, seed: int, serving_mix: bool = False):
+    """DIN attention inputs at T=50, H=16: uniform lengths in [0, 50] with 0
+    and 50 forced in, or with ``serving_mix`` the serving path's history
+    lengths (min(geometric(0.15), 50), data/synthetic.py) with 0, 1, 49 and
+    50 forced in."""
     from recalgorithm_tpu_torch.ops.attention import DINAttention
 
     rng = np.random.default_rng(seed)
     t, h = 50, 16
     q = rng.normal(size=(b, h)).astype(np.float32)
     k = rng.normal(size=(b, t, h)).astype(np.float32)
-    lengths = rng.integers(0, t + 1, b).astype(np.int32)
-    lengths[:2] = (0, t)
+    if serving_mix:
+        lengths = np.minimum(rng.geometric(0.15, b), t).astype(np.int32)
+        lengths[:4] = (0, 1, t - 1, t)
+    else:
+        lengths = rng.integers(0, t + 1, b).astype(np.int32)
+        lengths[:2] = (0, t)
     att = DINAttention(h, generator=torch.Generator().manual_seed(seed))
     weights = [p.detach().cuda() for p in (
         att.f1_att.weight, att.f1_att.bias, att.f2_att.weight,
@@ -717,24 +728,24 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     phase(f"3. kernel vs plain twin on the card (tolerance {TOL})")
-    print("  B     softmax  max_abs_err  kernel_ms  twin_ms   bound_ms (bound by)")
-    for b in (37, 256, 4096):
+    print("  DIN attention, T=50: B, lengths (uniform in [0, 50], or the serving "
+          "mix), softmax, max abs err, kernel ms, twin ms, bound ms (bound by)")
+    for b, mix in DIN_CASES:
         for sm in (False, True):
-            dev, weights, lengths = random_attention_case(b, seed=b)
+            dev, weights, lengths = random_attention_case(b, seed=b, serving_mix=mix)
             got = din_attention(*dev, *weights, use_softmax=sm)
             want = din_attention_reference(*dev, *weights, use_softmax=sm)
             torch.cuda.synchronize()
-            err = check_close(f"din_attention B={b} softmax={sm}",
-                              got.cpu().numpy(), want.cpu().numpy())
-            row = f"  {b:<5} {sm!s:<8} {err:.3e}"
-            if b in (256, 4096):
-                k_ms = cuda_ms(
-                    lambda: din_attention(*dev, *weights, use_softmax=sm), iters=200)
-                p_ms = cuda_ms(lambda: din_attention_reference(
-                    *dev, *weights, use_softmax=sm))
-                bound, by = din_attention_bound_ms(lengths, 50, sm)
-                row += f"    {k_ms:.5f}    {p_ms:.5f}  {bound:.5f} ({by})"
-            print(row, flush=True)
+            label = f"din_attention B={b} {'serving mix' if mix else 'uniform'} softmax={sm}"
+            err = check_close(label, got.cpu().numpy(), want.cpu().numpy())
+            k_ms = cuda_ms(lambda: din_attention(*dev, *weights, use_softmax=sm), iters=200)
+            # 20 calls of the twin's ~20 launches stay inside the launch queue,
+            # which would otherwise block the host behind the GPU sleep
+            p_ms = cuda_ms(lambda: din_attention_reference(*dev, *weights, use_softmax=sm),
+                           iters=20)
+            bound, by = din_attention_bound_ms(lengths, 50, sm)
+            print(f"  {label}: err {err:.3e}  kernel {k_ms:.5f} ms  twin {p_ms:.5f} ms  "
+                  f"bound {bound:.5f} ms ({by})", flush=True)
     print("  BST attention: forward, P (f32, bf16) and dq/dk/dv vs the twin; "
           f"gradients {GRAD_TOL} x max|g|, bf16 P {BF16_TOL}")
     for b, h, t, mix in (*((*s, False) for s in BST_SHAPES), (*BST_SERVED_MIX, True),

@@ -30,12 +30,16 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def _case(b, seed):
+def _case(b, seed, t=T, forced=(0, T, 1), full=0):
+    """Lengths uniform in [0, t], then ``forced`` into the first rows and
+    ``full`` rows of len = t after them."""
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(b, H)).astype(np.float32)
-    k = rng.normal(size=(b, T, H)).astype(np.float32)
-    lengths = rng.integers(0, T + 1, b).astype(np.int32)
-    lengths[:3] = (0, T, 1)
+    k = rng.normal(size=(b, t, H)).astype(np.float32)
+    lengths = rng.integers(0, t + 1, b).astype(np.int32)
+    forced = forced[:b]
+    lengths[:len(forced)] = forced
+    lengths[len(forced):len(forced) + full] = t
     att = DINAttention(H, generator=torch.Generator().manual_seed(seed))
     weights = [p.detach().cuda() for p in (
         att.f1_att.weight, att.f1_att.bias, att.f2_att.weight,
@@ -43,19 +47,38 @@ def _case(b, seed):
     return [torch.from_numpy(x).cuda() for x in (q, k, lengths)], weights
 
 
+# (B, T, forced lengths, rows of len = T after them).  The kernel packs the
+# valid steps of E examples a block into chunks of 64 rows, E = B / (the
+# blocks the card holds at once, 528 on an H100) rounded up and clamped to
+# [1, 16]: B = 1, 8 and 37 give E = 1, 1024 E = 2, 4099 E = 8 and a short
+# last group, 8448 E = 16; 0, 1, T, len > T and len < 0 (both clipped) are
+# forced in; the full rows make whole groups of len = T that span several
+# chunks (16 at T = 64, E = 16: the whole score buffer).
+DIN_CASES = [
+    (1, 50, (50,), 0), (1, 64, (0,), 0), (1, 1, (1,), 0), (8, 50, (0, 1, 50, 57, -3), 0),
+    (37, 50, (0, 1, 50, 57, -3), 0), (37, 1, (0, 1, 1, 4, -1), 0),
+    (1024, 50, (0, 1, 50, 57, -3), 0), (1024, 64, (0, 1, 64, 70, -2), 0),
+    (4099, 50, (0, 1, 50, 57, -3), 40), (8448, 64, (0, 1, 64, 99, -5), 48)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [37, 1024])
+@pytest.mark.parametrize("b,t,forced,full", DIN_CASES)
 @pytest.mark.parametrize("use_softmax", [False, True])
-def test_din_attention_kernel_matches_twin(cuda, b, use_softmax):
-    dev, weights = _case(b, seed=b)
+def test_din_attention_kernel_matches_twin(cuda, b, t, forced, full, use_softmax):
+    dev, weights = _case(b, seed=b + t, t=t, forced=forced, full=full)
+    keys, lengths = dev[1], dev[2]
     before = tkern.din_attention.launches
     got = tkern.din_attention(*dev, *weights, use_softmax=use_softmax)
     torch.cuda.synchronize()
     assert tkern.din_attention.launches == before + 1
     want = tkern.din_attention_reference(*dev, *weights, use_softmax=use_softmax)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
-    if not use_softmax:
-        assert not got[0].any()  # len = 0 -> zeros
+    empty = lengths <= 0
+    if use_softmax:  # len = 0 attends uniformly: the mean of all T keys
+        np.testing.assert_allclose(got[empty].cpu().numpy(),
+                                   keys[empty].mean(dim=1).cpu().numpy(), **TOL)
+    else:  # len = 0 -> zeros exactly
+        assert not got[empty].any()
 
 
 @pytest.mark.cuda
