@@ -14,9 +14,10 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      scaled_dot_product_attention: DIN attention at B = 8, 37, 256, 4096
      with uniform lengths and at B = 4096 with the serving length mix; the
      BST forward, P (f32 and bf16) and dq/dk/dv at (B, H, T) = (37|256|4096,
-     3, 51) and (4096, 2, 9) with uniform lengths, and at (8, 3, 51), a
-     served batch's size, and (4096, 3, 51) with the BST train path's length
-     mix;
+     3, 51) and (4096, 2, 9) with uniform lengths, at (8, 3, 51), a served
+     batch's size, and (4096, 3, 51) with the BST train path's length mix,
+     and at AutoInt's (4096, 2, 9) with every key valid (SDPA also without
+     a mask);
   4. main path 1: full-width DIN (DINConfig defaults, real WeChat table
      sizes, random weights from a seed) exported, served by the port's
      build_server on cuda, 64 HTTP requests from 4 threads, every response
@@ -36,10 +37,23 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      own rounding); the BST kernels at that step's own inputs; the
      train step's time (CUDA events, host wall), ex/s and device idle share
      (torch.profiler);
-  9. the golden recipe of tests/golden_common.py for BST on the card, its
-     eval AUC held to the band of tests/golden_bands.json;
+  9. the golden recipe of tests/golden_common.py for BST and DIN on the
+     card, each eval AUC held to its band of tests/golden_bands.json;
  10. the BST export served over HTTP by build_server, every response held
-     against the CPU.
+     against the CPU;
+ 11. main path 3: full-width AutoInt (AutoIntConfig defaults: 3 layers of
+     field attention on the BST kernels, T = 9 fields, H = 2, d = 16; real
+     table sizes) trains through cli.main.main on cuda at B=4096 as phase 7
+     trains BST, with the exact launches of its three BST kernels; one train
+     step against the CPU as phase 8; the BST kernels at the first layer's
+     own q, k, v against their twins, their bounds and SDPA with and without
+     a mask; the train step profiled; the export served over HTTP; the
+     golden recipe, gated on its band;
+ 12. PNN, xDeepFM and FiBiNET at full width (config defaults, real tables,
+     B=4096) train 8 steps each through cli.main on cuda; each best export
+     predicted by Predictor on cuda against the CPU; each golden recipe on
+     cuda (PNN gated on its band; xDeepFM and FiBiNET, whose bands are only
+     1.3-1.4 sigma of their rerun spread, on MIN_EDGE, band printed).
 
 Each main path's kernel launch counts are set to 0 just before it and read
 just after: a kernel of the path that never launched fails the run.  The
@@ -53,6 +67,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import csv
+import dataclasses
 import json
 import math
 import os
@@ -91,6 +106,8 @@ DIN_CASES = ((8, False), (37, False), (256, False), (4096, False), (4096, True))
 BST_SHAPES = ((37, 3, 51), (256, 3, 51), (4096, 3, 51), (4096, 2, 9))
 BST_SERVED_MIX = (8, 3, 51)
 BST_MAIN_MIX = (4096, 3, 51)
+AUTOINT_SHAPE = (4096, 2, 9)  # AutoInt's fields as keys, every one valid
+AUTOINT_LAYERS = 3  # AutoIntConfig.att_layers: attention calls a forward
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 # phase 8: a cuda gradient may also be off the f64 step by this many times the
@@ -103,7 +120,25 @@ BST_STEPS = 40
 BST_EVAL_EVERY = 20
 BST_RESUME_STEPS = 50
 DIN_TRAIN_STEPS = 8
-STEP_ITERS = 20  # train steps timed / profiled in phase 8
+STEP_ITERS = 20  # train steps timed / profiled in phases 8 and 11
+# phase 12: full-width training steps of each model on PNN's field surface
+ZOO_MODELS = ("PNN", "xDeepFM", "FiBiNET")
+ZOO_TRAIN_STEPS = 8
+ZOO_PREDICT_BATCH = 1024
+# the golden recipe of tests/golden_common.py (which imports the JAX
+# package, so its numbers are copied here): the synthetic stream of seed 3 at
+# vocab scale 0.005, B=128, GOLDEN_STEPS steps at GOLDEN_LR unless
+# GOLDEN_PER_MODEL says otherwise, the SMALL_OVERRIDES widths that a config
+# has, 32 eval batches from seed 5000; MIN_EDGE is the AUC that tells a
+# live model from a dead one
+GOLDEN_SEED, GOLDEN_BATCH, GOLDEN_STEPS, GOLDEN_LR, GOLDEN_EVAL_BATCHES = 3, 128, 60, 0.005, 32
+GOLDEN_PER_MODEL = {"PNN": {"steps": 800, "lr": 0.02}, "FiBiNET": {"steps": 200, "lr": 0.02},
+                    "BST": {"steps": 300, "lr": 0.01}}
+GOLDEN_OVERRIDES = {"hidden_units": (64, 32), "output_dimension": 16,
+                    "cin_layer_feature_maps": (8, 8)}
+MIN_EDGE = 0.57
+# models whose band is too narrow for another init draw: gated on MIN_EDGE
+GOLDEN_EDGE_ONLY = ("xDeepFM", "FiBiNET")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -238,14 +273,17 @@ def check_grads(name: str, got, want, tol=GRAD_TOL) -> float:
     return worst
 
 
-def bst_case(b: int, h: int, t: int, seed: int, main_mix: bool = False):
+def bst_case(b: int, h: int, t: int, seed: int, main_mix: bool = False, full: bool = False):
     """Uniform lengths in [0, t], or with ``main_mix`` the BST train path's
     (history min(geometric(0.15), 50) + 1, data/synthetic.py) clipped to t,
-    with rows of n = 0, 1, 31, 32, 33 and t forced in."""
+    with rows of n = 0, 1, 31, 32, 33 and t forced in, or with ``full``
+    every length t (AutoInt's)."""
     rng = np.random.default_rng(seed)
     q, k, v, g = (torch.from_numpy(rng.normal(size=(b, h, t, 16)).astype(np.float32)).cuda()
                   for _ in range(4))
-    if main_mix:
+    if full:
+        lengths = np.full(b, t, np.int32)
+    elif main_mix:
         lengths = np.minimum(np.minimum(rng.geometric(0.15, b), 50) + 1, t).astype(np.int32)
         lengths[:6] = (0, 1, 31, 32, 33, t)
     else:
@@ -258,7 +296,9 @@ def bst_kernels_vs_twins(q, k, v, g, lengths, timed: bool) -> dict:
     """Each BST kernel against its twin on (q, k, v, lengths): forward, P in
     f32 and bf16, dq/dk/dv from both.  With ``timed``: each kernel's ms, its
     twin's, its bound, and scaled_dot_product_attention's (rows with len >= 1:
-    SDPA gives NaN on a fully masked row)."""
+    SDPA gives NaN on a fully masked row), with the boolean key mask and,
+    where every key is valid, also with none (``library_ms_unmasked``: the
+    call a PyTorch user makes for AutoInt)."""
     from recalgorithm_tpu_torch.ops.cuda import bst_attention as bk
 
     b, h, t, _ = q.shape
@@ -319,6 +359,18 @@ def bst_kernels_vs_twins(q, k, v, g, lengths, timed: bool) -> dict:
                                                         retain_graph=True)),
         "sdpa_rows": int(rows.sum()),
     }
+    if bool((lengths == t).all()):
+        u_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        u_out = sdpa(*u_leaves)
+        r["err"]["sdpa_unmasked"] = float((u_out.detach() - want).abs().max())
+        with torch.no_grad():
+            u_fwd = cuda_ms(lambda: sdpa(q, k, v))
+        r["library_ms_unmasked"] = {
+            "forward": u_fwd,
+            "forward_save": cuda_ms(lambda: sdpa(*u_leaves)),
+            "backward": cuda_ms(lambda: torch.autograd.grad(u_out, u_leaves, g,
+                                                            retain_graph=True)),
+        }
     r["bound"] = {
         "forward": bst_bound_ms(lens, h, t, "forward"),
         "forward_save": bst_bound_ms(lens, h, t, "forward_save"),
@@ -329,10 +381,13 @@ def bst_kernels_vs_twins(q, k, v, g, lengths, timed: bool) -> dict:
     return r
 
 
-def bst_counts() -> dict[str, int]:
+def kernel_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch count."""
     from recalgorithm_tpu_torch.ops.cuda import bst_attention as bk
+    from recalgorithm_tpu_torch.ops.cuda.din_attention import din_attention
 
-    return {name: getattr(bk, name).launches for name in BST_KERNELS}
+    return {"din_attention": din_attention.launches,
+            **{name: getattr(bk, name).launches for name in BST_KERNELS}}
 
 
 def zero_counts() -> None:
@@ -365,11 +420,12 @@ def train_cli(model: str, model_dir: str, steps: int, extra=()) -> dict:
 
 
 def profile_train_step(trainer, batches) -> dict:
-    """Where a BST train step's time goes: device ms of one step from CUDA
+    """Where a train step's time goes: device ms of one step from CUDA
     events around STEP_ITERS steps launched back to back (the steady pipeline,
     host gaps included), the median host wall of a step that ends in a
     synchronize, and the device busy time per step (torch.profiler, every
-    kernel and copy: one stream, so their sum is the busy time)."""
+    kernel and copy: one stream, so their sum is the busy time).  Fails if
+    no BST kernel ran: both training paths (BST, AutoInt) run them."""
     from torch.profiler import ProfilerActivity, profile
 
     for hb in batches[:3]:
@@ -406,27 +462,53 @@ def profile_train_step(trainer, batches) -> dict:
             "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]}
 
 
-def golden_bst(device: str, model_dir: str) -> float:
-    """tests/golden_common.py's fixed-seed recipe for BST (seed 3, vocab
-    scale 0.005, B=128, 300 steps, lr 0.01, hidden (64, 32), 32 eval batches
-    from seed 5000) through the port's Trainer; returns the eval AUC."""
+def golden_auc(name: str, device: str, model_dir: str) -> float:
+    """tests/golden_common.py's fixed-seed recipe for ``name`` (GOLDEN_*
+    above) through the port's Trainer; returns the eval AUC."""
     from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
     from recalgorithm_tpu_torch.features.schema import wechat_schema
-    from recalgorithm_tpu_torch.models.bst import BST, BSTConfig
+    from recalgorithm_tpu_torch.models import get_model
     from recalgorithm_tpu_torch.train import optimizers
     from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig
 
-    seed, batch, steps = 3, 128, 300
+    seed, batch = GOLDEN_SEED, GOLDEN_BATCH
+    steps = GOLDEN_PER_MODEL.get(name, {}).get("steps", GOLDEN_STEPS)
+    lr = GOLDEN_PER_MODEL.get(name, {}).get("lr", GOLDEN_LR)
     gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=seed, vocab_scale=0.005))
-    cfg = BSTConfig(batch_size=batch, hidden_units=(64, 32))
-    model = BST(cfg, wechat_schema(gen.vocab_sizes()), torch.Generator().manual_seed(seed))
-    trainer = Trainer(model, cfg.task_names, optimizers.build("adam", 0.01),
+    cfg_cls, model_cls = get_model(name)
+    fields = {f.name for f in dataclasses.fields(cfg_cls)}
+    cfg = cfg_cls(batch_size=batch,
+                  **{k: v for k, v in GOLDEN_OVERRIDES.items() if k in fields})
+    model = model_cls(cfg, wechat_schema(gen.vocab_sizes()), torch.Generator().manual_seed(seed))
+    trainer = Trainer(model, cfg.task_names, optimizers.build(cfg.optimizer, lr),
                       TrainerConfig(model_dir=model_dir, train_steps=steps, log_every=1000,
                                     save_checkpoints_steps=0, seed=seed), device=device)
-    ev = trainer.train_and_evaluate(gen.batches(batch, steps),
-                                    lambda: gen.batches(batch, 32, start_seed=5000),
-                                    log_fn=lambda line: None)
+    ev = trainer.train_and_evaluate(
+        gen.batches(batch, steps),
+        lambda: gen.batches(batch, GOLDEN_EVAL_BATCHES, start_seed=5000),
+        log_fn=lambda line: None)
     return ev["read_comment_auc"]
+
+
+def golden_phase(names, work: str) -> None:
+    """Each model's golden recipe on cuda, held to its band of
+    tests/golden_bands.json (GOLDEN_EDGE_ONLY: to MIN_EDGE, band printed)."""
+    with open(os.path.join(REPO, "tests", "golden_bands.json")) as f:
+        bands = json.load(f)
+    for name in names:
+        center = bands[name]["auc"]["read_comment_auc"]
+        width = bands[name]["band"]["read_comment_auc"]
+        t0 = time.perf_counter()
+        auc = golden_auc(name, "cuda", os.path.join(work, f"golden_{name}"))
+        inside = abs(auc - center) <= width
+        print(f"golden {name} read_comment_auc {auc} (band {center} +- {width}: "
+              f"{'inside' if inside else 'outside'}), {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        if name in GOLDEN_EDGE_ONLY:
+            if not auc >= MIN_EDGE:
+                raise AssertionError(f"golden {name} AUC {auc} below MIN_EDGE {MIN_EDGE}")
+        elif not inside:
+            raise AssertionError(f"golden {name} AUC {auc} outside {center} +- {width}")
 
 
 BST_REPLACES = {"forward": "recalgorithm_tpu/ops/pallas/bst_attention.py:52",
@@ -467,25 +549,30 @@ def step_gradient_ratios(gpu: dict, cpu: dict, exact: dict, zero: set[str]) -> d
     return ratios
 
 
-def bst_step_phase(best_dir: str, train_counts: dict, card: str, kind: str) -> list[dict]:
-    """One full-width BST train step (loss and every gradient) on cuda held
-    against the same step on the CPU, dropout off so both draw nothing; the
-    BST kernels timed at that step's attention inputs; the step profiled.
-    Returns the kernels' entries of the JSON line."""
-    import recalgorithm_tpu_torch.ops.attention as attention
+def step_phase(name: str, best_dir: str, capture_module, zero: set[str], card: str,
+               kind: str) -> dict:
+    """One full-width train step of ``name`` (loss and every gradient) on
+    cuda, from the weights of ``best_dir``, held against the same step on the
+    CPU, dropout off so both draw nothing; the BST kernels at the inputs of
+    that step's first attention call (``capture_module.bst_mha``, the entry
+    the model calls), against their twins, timed beside their bounds and
+    SDPA; the train step profiled (config defaults).  ``zero``: the
+    parameters whose true gradient is 0.  Returns bst_kernels_vs_twins's
+    report at the captured inputs."""
     from recalgorithm_tpu_torch import convert
     from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
     from recalgorithm_tpu_torch.features.schema import wechat_schema
-    from recalgorithm_tpu_torch.models.bst import BST, BSTConfig
+    from recalgorithm_tpu_torch.models import get_model
     from recalgorithm_tpu_torch.train import optimizers
     from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig
 
     gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=7, vocab_scale=1.0))
     schema = wechat_schema(gen.vocab_sizes())
     weights = convert.load_export(best_dir)
+    cfg_cls, model_cls = get_model(name)
 
     def trainer(device, cfg):
-        model = BST(cfg, schema)
+        model = model_cls(cfg, schema)
         model.load_state_dict(weights)
         return Trainer(model, cfg.task_names, optimizers.build("adam", cfg.learning_rate),
                        TrainerConfig(model_dir=os.path.join(best_dir, "unused")),
@@ -494,7 +581,7 @@ def bst_step_phase(best_dir: str, train_counts: dict, card: str, kind: str) -> l
     hb = gen.batch(BST_BATCH, 1)
 
     def one_step(device, f64=False):
-        tr = trainer(device, BSTConfig(dropout_rate=0.0))
+        tr = trainer(device, cfg_cls(dropout_rate=0.0))
         batch = tr._put_batch(hb)
         if f64:
             tr.model.double()
@@ -506,28 +593,28 @@ def bst_step_phase(best_dir: str, train_counts: dict, card: str, kind: str) -> l
                                       for n, p in tr.model.named_parameters()}
 
     captured = {}
-    plain_mha = attention.bst_mha
+    plain_mha = capture_module.bst_mha
 
-    def capture(q, k, v, lengths, save_bf16=False):
-        captured.update(q=q.detach().clone(), k=k.detach().clone(), v=v.detach().clone(),
-                        lengths=lengths.clone())
-        return plain_mha(q, k, v, lengths, save_bf16)
+    def capture(q, k, v, lengths, *rest):
+        if not captured:  # the first attention call of the step
+            captured.update(q=q.detach().clone(), k=k.detach().clone(),
+                            v=v.detach().clone(), lengths=lengths.clone())
+        return plain_mha(q, k, v, lengths, *rest)
 
-    attention.bst_mha = capture
+    capture_module.bst_mha = capture
     try:
         gpu_loss, gpu_grads = one_step("cuda")
     finally:
-        attention.bst_mha = plain_mha
+        capture_module.bst_mha = plain_mha
     cpu_loss, cpu_grads = one_step("cpu")
     _, exact = one_step("cpu", f64=True)
 
     def max_err(grads):
         return max(float((grads[n] - exact[n]).abs().max()) for n in exact)
 
-    ratios = step_gradient_ratios(gpu_grads, cpu_grads, exact,
-                                  zero_gradient_params(BSTConfig()))
+    ratios = step_gradient_ratios(gpu_grads, cpu_grads, exact, zero)
     worst = max(ratios, key=ratios.get)
-    print(f"train step B={BST_BATCH}: loss cuda {gpu_loss} cpu {cpu_loss}; over "
+    print(f"{name} train step B={BST_BATCH}: loss cuda {gpu_loss} cpu {cpu_loss}; over "
           f"{len(exact)} gradient tensors against the f64 CPU step, cuda within "
           f"{max_err(gpu_grads):.3e}, f32 CPU within {max_err(cpu_grads):.3e}; the "
           f"worst tensor, {worst}, uses {ratios[worst]:.4f} of its allowance")
@@ -543,25 +630,12 @@ def bst_step_phase(best_dir: str, train_counts: dict, card: str, kind: str) -> l
                          .astype(np.float32)).cuda()
     r = bst_kernels_vs_twins(q, k, v, g, lengths, timed=True)
     lens = lengths.cpu().numpy()
-    print(f"BST kernels at the train step's attention inputs ({tuple(q.shape)}, mean "
-          f"len {lens.mean():.2f}): {json.dumps(r, default=str)}")
-    entries = []
-    for key in ("forward", "forward_save", "backward"):
-        name = "bst_attention_" + key
-        bound, by = r["bound"][key]
-        err = {"forward": r["err"]["forward"],
-               "forward_save": max(r["err"]["forward"], r["err"]["P"]),
-               "backward": r["err"]["backward"]}[key]
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "recalgorithm_tpu_torch/csrc/bst_attention.cu",
-            "replaces": BST_REPLACES[key], "launches": train_counts[name],
-            "max_abs_err": err, "ms": r["ms"][key], "plain_ms": r["plain_ms"][key],
-            "bound_ms": bound, "bound_by": by, "library_ms": r["library_ms"][key]})
+    print(f"BST kernels at the {name} train step's first attention inputs "
+          f"({tuple(q.shape)}, mean len {lens.mean():.2f}): {json.dumps(r, default=str)}")
 
-    tr = trainer("cuda", BSTConfig())
+    tr = trainer("cuda", cfg_cls())
     prof = profile_train_step(tr, [gen.batch(BST_BATCH, 10 + i) for i in range(4)])
-    print(f"BST train step on {kind} ({card}), B={BST_BATCH}, dropout 0.1: "
+    print(f"{name} train step on {kind} ({card}), B={BST_BATCH}, config defaults: "
           f"{prof['step_ms']} ms a step (CUDA events over {STEP_ITERS} steps back to "
           f"back; {BST_BATCH / prof['step_ms'] * 1e3:.0f} ex/s), host wall of a "
           f"synchronized step {prof['wall_ms']} ms (median), device busy "
@@ -569,19 +643,50 @@ def bst_step_phase(best_dir: str, train_counts: dict, card: str, kind: str) -> l
           f"{prof['device_ops_per_step']:.0f} kernels+copies per step")
     for kname, ms in prof["top"]:
         print(f"    {ms:9.5f} ms  {kname[:100]}")
+    return r
+
+
+def bst_entries(reports: dict[str, dict], counts: dict[str, dict]) -> list[dict]:
+    """The BST kernels' entries of the JSON line: the numbers at BST's train
+    step inputs (``reports["BST"]``), ``launches`` summed over the main
+    paths' runs (``counts``, by path), and ``autoint`` at AutoInt's inputs."""
+    def err(r, key):
+        return {"forward": r["err"]["forward"],
+                "forward_save": max(r["err"]["forward"], r["err"]["P"]),
+                "backward": r["err"]["backward"]}[key]
+
+    r, ra = reports["BST"], reports["AutoInt"]
+    entries = []
+    for key in ("forward", "forward_save", "backward"):
+        name = "bst_attention_" + key
+        bound, by = r["bound"][key]
+        by_path = {path: c[name] for path, c in counts.items()}
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "recalgorithm_tpu_torch/csrc/bst_attention.cu",
+            "replaces": BST_REPLACES[key], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": err(r, key), "ms": r["ms"][key], "plain_ms": r["plain_ms"][key],
+            "bound_ms": bound, "bound_by": by, "library_ms": r["library_ms"][key],
+            "autoint": {"ms": ra["ms"][key], "bound_ms": ra["bound"][key][0],
+                        "bound_by": ra["bound"][key][1], "plain_ms": ra["plain_ms"][key],
+                        "library_ms": ra["library_ms"][key],
+                        "library_ms_unmasked": ra["library_ms_unmasked"][key],
+                        "max_abs_err": err(ra, key)}})
     return entries
 
 
-def serve_bst(best_dir: str, gen) -> None:
-    """The BST export served by build_server on cuda; every response held
-    against the CPU; only the inference forward may launch."""
+def serve_export(name: str, best_dir: str, gen) -> None:
+    """The export of ``name`` (a model on the BST kernels) served by
+    build_server on cuda; every response held against the CPU; only the
+    inference forward may launch."""
     from recalgorithm_tpu_torch.cli.serve import build_server
     from recalgorithm_tpu_torch.features.schema import wechat_schema
-    from recalgorithm_tpu_torch.models.bst import BST, BSTConfig
+    from recalgorithm_tpu_torch.models import get_model
     from recalgorithm_tpu_torch.serving.predictor import Predictor
 
     args = argparse.Namespace(
-        model="BST", model_dir=None, export_dir=best_dir, vocabulary_dir=None,
+        model=name, model_dir=None, export_dir=best_dir, vocabulary_dir=None,
         synthetic_vocab_scale=1.0, host="127.0.0.1", port=0,
         max_batch_size=256, max_delay_ms=2.0, device="cuda")
     schema = wechat_schema(gen.vocab_sizes())
@@ -612,17 +717,100 @@ def serve_bst(best_dir: str, gen) -> None:
         httpd.server_close()
         for bt in batchers.values():
             bt.close()
-    counts = bst_counts()
+    counts = kernel_counts()
     if errors or len(results) != 32:
         raise AssertionError(f"{len(results)}/32 responses; errors: {errors[:3]}")
-    want = Predictor(BST(BSTConfig(), schema), best_dir, device="cpu").predict_batch(hb)
-    err = check_close("BST HTTP responses vs CPU", np.array(
+    cfg_cls, model_cls = get_model(name)
+    want = Predictor(model_cls(cfg_cls(), schema), best_dir, device="cpu").predict_batch(hb)
+    err = check_close(f"{name} HTTP responses vs CPU", np.array(
         [results[i] for i in range(32)], np.float32), want["read_comment"])
-    print(f"32 BST requests from 4 threads: vs CPU max abs err {err:.3e}; kernel "
+    print(f"32 {name} requests from 4 threads: vs CPU max abs err {err:.3e}; kernel "
           f"launches {counts}")
-    if counts["bst_attention_forward"] <= 0 or counts["bst_attention_forward_save"] \
-            or counts["bst_attention_backward"]:
-        raise AssertionError("BST serving must launch the inference forward only")
+    if counts["bst_attention_forward"] <= 0 or any(
+            n for k, n in counts.items() if k != "bst_attention_forward"):
+        raise AssertionError(f"{name} serving must launch the inference forward only")
+
+
+def train_and_resume(name: str, model_dir: str, layers: int) -> tuple[dict, str]:
+    """``name`` (``layers`` attention calls a forward, on the BST kernels)
+    trains through cli.main on cuda, BST_STEPS steps with an eval and a
+    checkpoint every BST_EVAL_EVERY, then resumes to BST_RESUME_STEPS.
+    Checks every kernel's launches exactly, the metrics, predictions.csv,
+    the last checkpoint and the best export; returns (launches, best_dir)."""
+    from recalgorithm_tpu_torch import convert
+    from recalgorithm_tpu_torch.cli.main import EVAL_BATCHES
+    from recalgorithm_tpu_torch.serving.predictor import Predictor
+
+    every = ["--eval_every_steps", str(BST_EVAL_EVERY),
+             "--save_checkpoints_steps", str(BST_EVAL_EVERY)]
+    zero_counts()
+    first = train_cli(name, model_dir, BST_STEPS, every)
+    resumed = train_cli(name, model_dir, BST_RESUME_STEPS, every)
+    counts = kernel_counts()
+    print(f"{name} kernel launches on the training path: {counts}")
+    # inference forwards: every step-triggered eval, the final eval and the
+    # predictions of each run, EVAL_BATCHES batches each
+    evals = (BST_STEPS // BST_EVAL_EVERY + 2
+             + (BST_RESUME_STEPS // BST_EVAL_EVERY - BST_STEPS // BST_EVAL_EVERY) + 2)
+    want = {"din_attention": 0,
+            "bst_attention_forward": layers * EVAL_BATCHES * evals,
+            "bst_attention_forward_save": layers * BST_RESUME_STEPS,
+            "bst_attention_backward": layers * BST_RESUME_STEPS}
+    if counts != want:
+        raise AssertionError(f"launches {counts}, want {want} (per attention layer: one "
+                             "forward with P and one backward per train step, one forward "
+                             "without P per eval or predict batch)")
+    for final in (first, resumed):
+        if not all(math.isfinite(x) for x in final.values()):
+            raise AssertionError(f"non-finite eval metrics: {final}")
+    with open(os.path.join(model_dir, "predictions.csv")) as f:
+        rows = list(csv.reader(f))
+    if rows[0] != ["read_comment_probabilities"] or len(rows) != 1 + EVAL_BATCHES * BST_BATCH:
+        raise AssertionError(f"predictions.csv: header {rows[0]}, {len(rows)} lines")
+    ckpts = sorted(os.listdir(os.path.join(model_dir, "checkpoints")))
+    best_dir = Predictor.latest_best(model_dir)
+    print(f"checkpoints {ckpts}; best export {best_dir}; predictions.csv "
+          f"{len(rows) - 1} rows; final eval after resume {resumed}")
+    if f"ckpt_{BST_RESUME_STEPS}.pt" not in ckpts or not os.path.exists(
+            os.path.join(best_dir, convert.EXPORT_FILE)):
+        raise AssertionError("missing checkpoint or best export")
+    return {k: counts[k] for k in BST_KERNELS}, best_dir
+
+
+def zoo_phase(work: str, gen) -> None:
+    """Each of ZOO_MODELS (config defaults, real tables) trains
+    ZOO_TRAIN_STEPS steps at B=4096 through cli.main on cuda with a final
+    eval and predictions; its best export predicted by Predictor on cuda is
+    held to the CPU within TOL.  These paths run no hand kernel."""
+    from recalgorithm_tpu_torch.cli.main import EVAL_BATCHES
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.models import get_model
+    from recalgorithm_tpu_torch.serving.predictor import Predictor
+
+    schema = wechat_schema(gen.vocab_sizes())
+    batch = gen.batch(ZOO_PREDICT_BATCH, 5)
+    for name in ZOO_MODELS:
+        model_dir = os.path.join(work, name)
+        zero_counts()
+        final = train_cli(name, model_dir, ZOO_TRAIN_STEPS)
+        counts = kernel_counts()
+        if any(counts.values()):
+            raise AssertionError(f"{name} launched hand kernels it does not use: {counts}")
+        if not final or not all(math.isfinite(x) for x in final.values()):
+            raise AssertionError(f"{name}: final eval {final}")
+        with open(os.path.join(model_dir, "predictions.csv")) as f:
+            n_rows = sum(1 for _ in f) - 1
+        if n_rows != EVAL_BATCHES * BST_BATCH:
+            raise AssertionError(f"{name} predictions.csv: {n_rows} rows")
+        best_dir = Predictor.latest_best(model_dir)
+        cfg_cls, model_cls = get_model(name)
+        got = Predictor(model_cls(cfg_cls(), schema), best_dir,
+                        device="cuda").predict_batch(batch)["read_comment"]
+        want = Predictor(model_cls(cfg_cls(), schema), best_dir,
+                         device="cpu").predict_batch(batch)["read_comment"]
+        err = check_close(f"{name} export on cuda vs CPU", got, want)
+        print(f"{name}: best export {os.path.basename(best_dir)}; Predictor B="
+              f"{ZOO_PREDICT_BATCH} on cuda vs CPU max abs err {err:.3e}", flush=True)
 
 
 def card_line() -> str:
@@ -748,19 +936,24 @@ def main() -> int:
                   f"bound {bound:.5f} ms ({by})", flush=True)
     print("  BST attention: forward, P (f32, bf16) and dq/dk/dv vs the twin; "
           f"gradients {GRAD_TOL} x max|g|, bf16 P {BF16_TOL}")
-    for b, h, t, mix in (*((*s, False) for s in BST_SHAPES), (*BST_SERVED_MIX, True),
-                         (*BST_MAIN_MIX, True)):
-        r = bst_kernels_vs_twins(*bst_case(b, h, t, seed=b + t, main_mix=mix), timed=True)
-        lens = "the train path's length mix" if mix else "uniform lengths"
-        print(f"  B={b} H={h} T={t}, {lens}: max abs err {json.dumps(r['err'])}", flush=True)
-        if "ms" in r:
-            for kname, ms in r["ms"].items():
-                base = kname.replace("_bf16", "")
-                bound, by = r["bound"][kname]
-                print(f"    {kname:<18} kernel {ms:.5f} ms  twin "
-                      f"{r['plain_ms'].get(base, float('nan')):.5f} ms  sdpa "
-                      f"{r['library_ms'].get(base, float('nan')):.5f} ms  bound "
-                      f"{bound:.5f} ms ({by})", flush=True)
+    bst_cases = (*((*s, "uniform") for s in BST_SHAPES), (*BST_SERVED_MIX, "main_mix"),
+                 (*BST_MAIN_MIX, "main_mix"), (*AUTOINT_SHAPE, "full"))
+    labels = {"uniform": "uniform lengths", "main_mix": "the train path's length mix",
+              "full": "every length T (AutoInt)"}
+    for b, h, t, mix in bst_cases:
+        r = bst_kernels_vs_twins(*bst_case(b, h, t, seed=b + t, main_mix=mix == "main_mix",
+                                           full=mix == "full"), timed=True)
+        print(f"  B={b} H={h} T={t}, {labels[mix]}: max abs err {json.dumps(r['err'])}",
+              flush=True)
+        unmasked = r.get("library_ms_unmasked", {})
+        for kname, ms in r["ms"].items():
+            base = kname.replace("_bf16", "")
+            bound, by = r["bound"][kname]
+            print(f"    {kname:<18} kernel {ms:.5f} ms  twin "
+                  f"{r['plain_ms'].get(base, float('nan')):.5f} ms  sdpa "
+                  f"{r['library_ms'].get(base, float('nan')):.5f} ms  sdpa unmasked "
+                  f"{unmasked.get(base, float('nan')):.5f} ms  bound "
+                  f"{bound:.5f} ms ({by})", flush=True)
 
     phase("4. main path 1: full-width DIN served over HTTP on cuda")
     schema = wechat_schema()
@@ -927,63 +1120,41 @@ def main() -> int:
     phase(f"7. main path 2: full-width BST trains through cli.main on cuda, "
           f"B={BST_BATCH}, {BST_STEPS} steps (eval every {BST_EVAL_EVERY}), "
           f"then resumes to {BST_RESUME_STEPS}")
-    from recalgorithm_tpu_torch.cli.main import EVAL_BATCHES
-
-    bst_dir = os.path.join(work, "bst")
-    zero_counts()
-    first = train_cli("BST", bst_dir, BST_STEPS,
-                      ["--eval_every_steps", str(BST_EVAL_EVERY),
-                       "--save_checkpoints_steps", str(BST_EVAL_EVERY)])
-    resumed = train_cli("BST", bst_dir, BST_RESUME_STEPS,
-                        ["--eval_every_steps", str(BST_EVAL_EVERY),
-                         "--save_checkpoints_steps", str(BST_EVAL_EVERY)])
-    train_counts = bst_counts()
-    print(f"BST kernel launches on the training path: {train_counts}")
-    # inference forwards: every step-triggered eval, the final eval and the
-    # predictions of each run, EVAL_BATCHES batches each
-    evals = (BST_STEPS // BST_EVAL_EVERY + 2
-             + (BST_RESUME_STEPS // BST_EVAL_EVERY - BST_STEPS // BST_EVAL_EVERY) + 2)
-    want_counts = {"bst_attention_forward": EVAL_BATCHES * evals,
-                   "bst_attention_forward_save": BST_RESUME_STEPS,
-                   "bst_attention_backward": BST_RESUME_STEPS}
-    if train_counts != want_counts:
-        raise AssertionError(f"launches {train_counts}, want {want_counts} (one forward "
-                             "with P and one backward per train step, one forward "
-                             "without P per eval or predict batch)")
-    for final in (first, resumed):
-        if not all(math.isfinite(x) for x in final.values()):
-            raise AssertionError(f"non-finite eval metrics: {final}")
-    with open(os.path.join(bst_dir, "predictions.csv")) as f:
-        rows = list(csv.reader(f))
-    if rows[0] != ["read_comment_probabilities"] or len(rows) != 1 + EVAL_BATCHES * BST_BATCH:
-        raise AssertionError(f"predictions.csv: header {rows[0]}, {len(rows)} lines")
-    ckpts = sorted(os.listdir(os.path.join(bst_dir, "checkpoints")))
-    best_dir = Predictor.latest_best(bst_dir)
-    print(f"checkpoints {ckpts}; best export {best_dir}; predictions.csv "
-          f"{len(rows) - 1} rows; final eval after resume {resumed}")
-    if f"ckpt_{BST_RESUME_STEPS}.pt" not in ckpts or not os.path.exists(
-            os.path.join(best_dir, convert.EXPORT_FILE)):
-        raise AssertionError("missing checkpoint or best export")
+    bst_counts_run, best_dir = train_and_resume("BST", os.path.join(work, "bst"), 1)
 
     phase("8. one BST train step on cuda vs the CPU; kernels at its inputs; "
           "where a train step's time goes")
-    bst_report = bst_step_phase(best_dir, train_counts, card, kind)
+    import recalgorithm_tpu_torch.ops.attention as attention
+    from recalgorithm_tpu_torch.models.bst import BSTConfig
+    from recalgorithm_tpu_torch.ops.cuda import bst_attention
 
-    phase("9. golden recipe (tests/golden_common.py) for BST on cuda")
-    with open(os.path.join(REPO, "tests", "golden_bands.json")) as f:
-        band = json.load(f)["BST"]
-    center, width = band["auc"]["read_comment_auc"], band["band"]["read_comment_auc"]
-    t0 = time.perf_counter()
-    auc = golden_bst("cuda", os.path.join(work, "golden"))
-    print(f"golden BST read_comment_auc {auc} (band {center} +- {width}), "
-          f"{time.perf_counter() - t0:.2f} s")
-    if not abs(auc - center) <= width:
-        raise AssertionError(f"golden AUC {auc} outside {center} +- {width}")
+    reports = {"BST": step_phase("BST", best_dir, attention,
+                                 zero_gradient_params(BSTConfig()), card, kind)}
+
+    phase("9. golden recipe (tests/golden_common.py) for BST and DIN on cuda")
+    golden_phase(("BST", "DIN"), work)
 
     phase("10. the BST export served over HTTP on cuda")
-    serve_bst(best_dir, gen)
+    serve_export("BST", best_dir, gen)
 
-    report = {"kernels": [din_entry, *bst_report]}
+    phase(f"11. main path 3: full-width AutoInt trains through cli.main on cuda, "
+          f"B={BST_BATCH}, {BST_STEPS} steps (eval every {BST_EVAL_EVERY}), then resumes "
+          f"to {BST_RESUME_STEPS}; a train step vs the CPU; the BST kernels at its "
+          "inputs; its export served; its golden recipe")
+    autoint_counts, autoint_dir = train_and_resume(
+        "AutoInt", os.path.join(work, "autoint"), AUTOINT_LAYERS)
+    # AutoInt has no BatchNorm: no gradient of its step is zero
+    reports["AutoInt"] = step_phase("AutoInt", autoint_dir, bst_attention, set(), card, kind)
+    serve_export("AutoInt", autoint_dir, gen)
+    golden_phase(("AutoInt",), work)
+
+    phase(f"12. {', '.join(ZOO_MODELS)} at full width on cuda: {ZOO_TRAIN_STEPS} steps "
+          "through cli.main, the best export against the CPU, the golden recipes")
+    zoo_phase(work, gen)
+    golden_phase(ZOO_MODELS, work)
+
+    report = {"kernels": [din_entry, *bst_entries(
+        reports, {"BST": bst_counts_run, "AutoInt": autoint_counts})]}
     print()
     print(card)
     print(json.dumps(report))

@@ -1,4 +1,6 @@
-"""Model zoo: importing this package populates the registry (DIN and BST so far).
+"""Model zoo: importing this package populates the registry with the models
+ported so far: DIN, BST, AutoInt (AutoInt+ with ``use_deep_tower``), PNN,
+xDeepFM and FiBiNET.
 
 Use ``recalgorithm_tpu_torch.models.get_model(name)`` for
 (config_cls, model_cls).
@@ -6,6 +8,13 @@ Use ``recalgorithm_tpu_torch.models.get_model(name)`` for
 
 from recalgorithm_tpu_torch.models.common import MODEL_REGISTRY, get_model, register_model
 
-from recalgorithm_tpu_torch.models import bst, din  # noqa: F401  (register BST, DIN)
+from recalgorithm_tpu_torch.models import (  # noqa: F401  (register the models)
+    autoint,
+    bst,
+    din,
+    fibinet,
+    pnn,
+    xdeepfm,
+)
 
 __all__ = ["MODEL_REGISTRY", "get_model", "register_model"]

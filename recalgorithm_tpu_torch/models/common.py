@@ -1,11 +1,15 @@
 """Shared model scaffolding: configs, field groupings, the model registry.
 
-Counterpart of ``recalgorithm_tpu/models/common.py`` (the parts DIN uses).
-"W&D family" models (Wide&Deep, DeepCrossing, DCN, DIN, BST, MMOE, PLE) use
-fixed per-field dims (wide_and_deep.py:108-114, mmoe.py:103-109).  Every
-model's ``forward(batch)`` returns ``({task: (B,) logits}, {name: loss})``:
-the second dict holds the regularisation terms the JAX models sow into their
-``"losses"`` collection.
+Counterpart of ``recalgorithm_tpu/models/common.py`` (the parts DIN, BST,
+AutoInt, PNN, xDeepFM and FiBiNET use).  "W&D family" models (Wide&Deep,
+DeepCrossing, DCN, DIN, BST, MMOE, PLE) use fixed per-field dims
+(wide_and_deep.py:108-114, mmoe.py:103-109); the "FM family" (DeepFM, FFM,
+FwFM, AFM, NFM, PNN, xDeepFM, FiBiNET, and AutoInt) one uniform
+``embedding_dim`` for all fields (deepfm.py:83-89).  Every model's
+``forward(batch)`` returns ``({task: (B,) logits}, {name: loss})``: the
+second dict holds the regularisation terms the JAX models sow into their
+``"losses"`` collection, keyed by the sowing module's path
+(``inner_product.weight_l2``).
 """
 
 from __future__ import annotations
@@ -30,14 +34,24 @@ WD_FAMILY_DIMS: dict[str, int] = {
     "manual_tag_id": 4,
 }
 
+SCALAR_CAT_FIELDS = (
+    "userid",
+    "feedid",
+    "device",
+    "authorid",
+    "bgm_song_id",
+    "bgm_singer_id",
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainFlags:
     """Common training flags (reference header, wide_and_deep.py:24-39).
 
-    Carried for flag parity with the JAX package; this package only serves
-    so far.  The JAX package's ``scoped_vmem_limit_kib`` is an XLA-on-TPU
-    compiler budget with no counterpart here and is not carried.
+    ``cli/main.py`` builds the trainer from them.  Only ``optimizer="adam"``
+    and ``precision="f32"`` are ported.  The JAX package's
+    ``scoped_vmem_limit_kib`` is an XLA-on-TPU compiler budget with no
+    counterpart here and is not carried.
     """
 
     batch_size: int = 1024
@@ -62,11 +76,22 @@ class TrainFlags:
         raise ValueError(f"unknown precision {self.precision!r}")
 
 
+def uniform_tables(schema: Schema, embedding_dim: int,
+                   vocabs: Sequence[str]) -> dict[str, TableSpec]:
+    """FM-family tables: one dim for every vocab in ``vocabs``."""
+    return {v: TableSpec(v, schema.vocab_sizes[v], embedding_dim) for v in vocabs}
+
+
 def wd_tables(schema: Schema) -> dict[str, TableSpec]:
     """W&D-family tables with the fixed per-field dims."""
     return {
         v: TableSpec(v, schema.vocab_sizes[v], d) for v, d in WD_FAMILY_DIMS.items()
     }
+
+
+def stack_fields(field_list: list[torch.Tensor]) -> torch.Tensor:
+    """list of (B, K) with equal K -> (B, F, K)."""
+    return torch.stack(field_list, dim=1)
 
 
 class FieldEmbedder(nn.Module):

@@ -15,7 +15,7 @@ from torch import nn
 from recalgorithm_tpu_torch.ops.activations import leakyrelu
 from recalgorithm_tpu_torch.ops.cuda.bst_attention import bst_mha
 from recalgorithm_tpu_torch.ops.cuda.din_attention import NEG_INF, din_attention
-from recalgorithm_tpu_torch.ops.mlp import Dense, glorot_uniform_
+from recalgorithm_tpu_torch.ops.mlp import Dense, glorot_param
 
 __all__ = ["NEG_INF", "sequence_mask", "DINAttention", "BSTTransformerBlock"]
 
@@ -77,8 +77,7 @@ class BSTTransformerBlock(nn.Module):
         if use_position_embedding:
             shapes = {"position_embedding": (max_length, dim), **shapes}
         for name, shape in shapes.items():
-            self.register_parameter(
-                name, nn.Parameter(glorot_uniform_(torch.empty(shape), generator)))
+            self.register_parameter(name, glorot_param(*shape, generator=generator))
         self.use_position_embedding = use_position_embedding
         self.ln1 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
         self.ffn = Dense(dim, dim, generator)

@@ -1,14 +1,25 @@
-"""Dense layers with reference-parity initialisation.
+"""Dense towers with reference-parity layer ordering and initialisation.
 
-Counterpart of ``recalgorithm_tpu/ops/mlp.py`` (``Dense`` and
-``glorot_uniform`` so far): TF-default initialisers, glorot_uniform kernels
-and zero biases.
+Counterpart of ``recalgorithm_tpu/ops/mlp.py``: TF-default initialisers
+(glorot_uniform kernels, zero biases) and the reference's per-layer recipe
+(wide_and_deep.py:216-221, tower_layer.py:19-25)
+
+    dense(units, relu) -> dropout(rate, if training) -> batch_norm(training)
+
+i.e. post-activation BN applied after dropout.  The JAX ``MLPTower``'s
+``activation`` (dice / prelu / a callable) and ``compute_dtype`` have no
+counterpart: no model calls the tower with another activation, and bf16 is
+not ported (``TrainFlags.compute_dtype`` raises).
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 from torch import nn
+
+from recalgorithm_tpu_torch.ops.activations import Dropout, batch_norm
 
 
 def glorot_uniform_(t: torch.Tensor,
@@ -26,15 +37,80 @@ def glorot_uniform_(t: torch.Tensor,
         return t.uniform_(-bound, bound, generator=generator)
 
 
+def glorot_param(*shape: int, generator: torch.Generator | None = None) -> nn.Parameter:
+    """A raw parameter of ``shape`` in the flax layout, glorot_uniform."""
+    return nn.Parameter(glorot_uniform_(torch.empty(shape), generator))
+
+
 class Dense(nn.Linear):
-    """nn.Linear with a glorot_uniform weight and a zero bias.
+    """nn.Linear with a glorot_uniform weight and a zero bias (none with
+    ``bias=False``, flax ``use_bias=False``).
 
     The weight is ``(out, in)``: the transpose of the flax kernel.
     """
 
     def __init__(self, in_features: int, out_features: int,
-                 generator: torch.Generator | None = None):
-        super().__init__(in_features, out_features)
+                 generator: torch.Generator | None = None, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         with torch.no_grad():
             nn.init.xavier_uniform_(self.weight, generator=generator)
-            self.bias.zero_()
+            if bias:
+                self.bias.zero_()
+
+
+def add_tower(parent: nn.Module, in_features: int, hidden_units: Sequence[int],
+              dropout_rate: float, batch_norm_: bool,
+              generator: torch.Generator | None = None) -> tuple[list[str], int]:
+    """Register ``dense_<i>`` -> relu -> ``dropout_<i>`` -> ``bn_<i>`` per
+    hidden layer on ``parent`` (the flax names; dropout only when 0 < rate <
+    1, BN with running statistics, eps 1e-3, flax momentum 0.99).  Returns
+    the submodule names in call order and the output width."""
+    order, width = [], in_features
+    for i, units in enumerate(hidden_units):
+        layers = [(f"dense_{i}", Dense(width, units, generator)), (f"relu_{i}", nn.ReLU())]
+        if 0.0 < dropout_rate < 1.0:
+            layers.append((f"dropout_{i}", Dropout(dropout_rate)))
+        if batch_norm_:
+            layers.append((f"bn_{i}", batch_norm(units)))
+        for name, module in layers:
+            parent.add_module(name, module)
+            order.append(name)
+        width = units
+    return order, width
+
+
+class MLPTower(nn.Module):
+    """Hidden stack: [dense-relu -> dropout -> BN] * N, then with
+    ``logits_dim`` a final linear ``logits`` layer with no activation,
+    dropout or BN (the reference's Dense(1) head)."""
+
+    def __init__(self, in_features: int, hidden_units: Sequence[int],
+                 dropout_rate: float = 0.0, batch_norm: bool = False,
+                 logits_dim: int | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self._order, self.out_features = add_tower(
+            self, in_features, hidden_units, dropout_rate, batch_norm, generator)
+        if logits_dim is not None:
+            self.logits = Dense(self.out_features, logits_dim, generator)
+            self._order.append("logits")
+            self.out_features = logits_dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for name in self._order:
+            x = getattr(self, name)(x)
+        return x
+
+
+class ResidualUnit(nn.Module):
+    """DeepCrossing residual block (reference residual_unit.py:4-21):
+    y = relu(x + outer(relu(inner(x))))."""
+
+    def __init__(self, dim: int, internal_dim: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.inner = Dense(dim, internal_dim, generator)
+        self.outer = Dense(internal_dim, dim, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(x + self.outer(torch.relu(self.inner(x))))

@@ -18,6 +18,7 @@ import torch
 from recalgorithm_tpu_torch.ops.attention import DINAttention
 from recalgorithm_tpu_torch.ops.cuda import bst_attention as bkern
 from recalgorithm_tpu_torch.ops.cuda import din_attention as tkern
+from recalgorithm_tpu_torch.ops.interactions import InteractingLayer
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 T, H = 50, 16
@@ -209,3 +210,60 @@ def test_bst_mha_refuses_what_it_cannot_take(cuda):
         bkern.bst_mha(z, z, z, lengths)
     with pytest.raises(ValueError, match="on cpu"):
         bkern.bst_mha(q, k, v, lengths.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [37, 4096])
+def test_bst_mha_at_autoint_shapes_matches_twin(cuda, b):
+    """AutoInt's attention: T = 9 fields, H = 2, every key valid; the
+    inference forward, then the saving forward and the backward."""
+    q, k, v, g, lengths = _bst_case(b, 2, 9, seed=b, forced=(9,) * b)
+    assert (lengths == 9).all()
+    want = bkern.bst_mha_reference(q, k, v, lengths)
+    n0 = bkern.bst_attention_forward.launches
+    with torch.no_grad():
+        got = bkern.bst_mha(q, k, v, lengths)
+    assert bkern.bst_attention_forward.launches == n0 + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    twin = [x.clone().requires_grad_() for x in (q, k, v)]
+    n1, n2 = bkern.bst_attention_forward_save.launches, bkern.bst_attention_backward.launches
+    out = bkern.bst_mha(*leaves, lengths)
+    out.backward(g)
+    bkern.bst_mha_reference(*twin, lengths).backward(g)
+    torch.cuda.synchronize()
+    assert (bkern.bst_attention_forward_save.launches, bkern.bst_attention_backward.launches) \
+        == (n1 + 1, n2 + 1)
+    np.testing.assert_allclose(out.detach().cpu().numpy(), want.cpu().numpy(), **TOL)
+    for a, t in zip(leaves, twin):
+        scale = max(float(t.grad.abs().max()), 1.0)
+        np.testing.assert_allclose(a.grad.cpu().numpy(), t.grad.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_interacting_layer_on_cuda_matches_cpu(cuda):
+    """One AutoInt InteractingLayer (the BST kernels) against the same layer
+    on the CPU (the twin): value, the input's and every weight's gradient."""
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(512, 9, 16))
+                         .astype(np.float32))
+    g = torch.from_numpy(np.random.default_rng(1).normal(size=(512, 9, 32))
+                         .astype(np.float32))
+    cpu = InteractingLayer(16, 2, 16, generator=torch.Generator().manual_seed(0))
+    gpu = InteractingLayer(16, 2, 16).cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    xc, xg = x.clone().requires_grad_(), x.cuda().requires_grad_()
+    n1 = bkern.bst_attention_forward_save.launches
+    out_g = gpu(xg)
+    out_g.backward(g.cuda())
+    out_c = cpu(xc)
+    out_c.backward(g)
+    assert bkern.bst_attention_forward_save.launches == n1 + 1
+    np.testing.assert_allclose(out_g.detach().cpu().numpy(), out_c.detach().numpy(), **TOL)
+    pairs = [(xg.grad, xc.grad)] + [(pg.grad, pc.grad) for pg, pc in
+                                     zip(gpu.parameters(), cpu.parameters())]
+    for a, b in pairs:
+        scale = max(float(b.abs().max()), 1.0)
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-5 * scale)
+    with pytest.raises(ValueError, match=r"\(B, H, T, 16\)"):
+        InteractingLayer(16, 2, 8).cuda()(xg)  # the kernels take d = 16 only

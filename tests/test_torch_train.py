@@ -1,6 +1,6 @@
 """Port parity for training: the metrics and Adam against the JAX package,
-the port's Trainer against the JAX Trainer on the same init and batches (BST
-and DIN), checkpoint/resume, DIN gradients against the JAX fused-interpret
+the port's Trainer against the JAX Trainer on the same init and batches
+(AutoInt, BST, DIN and PNN), checkpoint/resume, DIN gradients against the JAX fused-interpret
 path, and the training CLI on the CPU.
 
 Tolerances: metrics on the same inputs 1e-6 (f32 counts and sums); Adam
@@ -23,16 +23,21 @@ import torch
 
 from recalgorithm_tpu.data.synthetic import SyntheticConfig, SyntheticWeChat
 from recalgorithm_tpu.features.schema import wechat_schema
+from recalgorithm_tpu.models.autoint import AutoInt as JaxAutoInt
+from recalgorithm_tpu.models.autoint import AutoIntConfig as JaxAutoIntConfig
 from recalgorithm_tpu.models.bst import BST as JaxBST, BSTConfig as JaxBSTConfig
 from recalgorithm_tpu.models.din import DIN as JaxDIN, DINConfig as JaxDINConfig
+from recalgorithm_tpu.models.pnn import PNN as JaxPNN, PNNConfig as JaxPNNConfig
 from recalgorithm_tpu.train import metrics as JM
 from recalgorithm_tpu.train import optimizers as joptimizers
 from recalgorithm_tpu.train.loop import Trainer as JaxTrainer, TrainerConfig as JaxTrainerConfig
 from recalgorithm_tpu_torch import convert
 from recalgorithm_tpu_torch.cli import main as tmain
 from recalgorithm_tpu_torch.features.schema import wechat_schema as t_wechat_schema
+from recalgorithm_tpu_torch.models.autoint import AutoInt, AutoIntConfig
 from recalgorithm_tpu_torch.models.bst import BST, BSTConfig
 from recalgorithm_tpu_torch.models.din import DIN, DINConfig
+from recalgorithm_tpu_torch.models.pnn import PNN, PNNConfig
 from recalgorithm_tpu_torch.serving.predictor import Predictor
 from recalgorithm_tpu_torch.train import loop as tloop
 from recalgorithm_tpu_torch.train import metrics as TM
@@ -157,12 +162,23 @@ def test_other_optimizers_not_ported_yet():
 # metrics, which read the running statistics, follow the walk.  The parity
 # runs take towers where every gradient is real: BST with the relu tower,
 # DIN without the tower's BN (Dice keeps its own BN and running statistics).
+# AutoInt runs JAX's plain einsum path (its Pallas path needs a TPU or
+# interpret mode).  PNN takes the L2 regulariser, so the reg terms the model
+# returns are part of the tracked loss, and no tower BN: its tower is dense
+# -> relu -> BN, and a unit that the relu passes for the whole batch is
+# linear from its bias to the BN, so that bias too gets a rounding-noise
+# gradient (measured: fcn.dense_0.bias 4e-3 apart after one step).
 MODELS = {
+    "AutoInt": (JaxAutoInt, JaxAutoIntConfig, AutoInt, AutoIntConfig, {}),
     "BST": (JaxBST, JaxBSTConfig, BST, BSTConfig,
             dict(hidden_units=(64, 32), dropout_rate=0.0, mlp_activation="relu")),
     "DIN": (JaxDIN, JaxDINConfig, DIN, DINConfig,
             dict(hidden_units=(64, 32), dropout_rate=0.0, batch_norm=False)),
+    "PNN": (JaxPNN, JaxPNNConfig, PNN, PNNConfig,
+            dict(hidden_units=(64, 32), dropout_rate=0.0, output_dimension=32,
+                 weight_regularizer=0.01, batch_norm=False)),
 }
+JAX_ONLY = {"AutoInt": dict(use_fused_attention="false")}
 
 
 @pytest.fixture(scope="module")
@@ -173,7 +189,8 @@ def gen():
 def _pair(name, gen, tmp_path, model_kw=None):
     jcls, jcfg_cls, tcls, tcfg_cls, kw = MODELS[name]
     kw = {**kw, **(model_kw or {})}
-    jmodel = jcls(config=jcfg_cls(batch_size=B, **kw), schema=wechat_schema(gen.vocab_sizes()))
+    jmodel = jcls(config=jcfg_cls(batch_size=B, **kw, **JAX_ONLY.get(name, {})),
+                  schema=wechat_schema(gen.vocab_sizes()))
     jt = JaxTrainer(jmodel, ("read_comment",), optax.adam(LR, b1=0.9, b2=0.999, eps=1e-8),
                     JaxTrainerConfig(model_dir=str(tmp_path / "jax"), seed=0,
                                      compact_grad_scatter=False))
@@ -216,7 +233,7 @@ def test_trainer_tracks_jax_trainer(name, gen, tmp_path):
         np.testing.assert_allclose(tev[k], jev[k], rtol=1e-4, atol=atol.get(k, 1e-4),
                                    err_msg=k)
     # the running BN statistics follow flax's biased update
-    got = convert.to_flax(tt.model)["batch_stats"]
+    got = convert.to_flax(tt.model).get("batch_stats", {})
     jax.tree.map(lambda a, b: np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4,
                                                          atol=1e-5),
                  got, jax.device_get(state.batch_stats))
