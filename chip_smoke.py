@@ -34,7 +34,9 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      eval batches the run took;
   8. one BST train step on cuda held against the same step on the CPU (the
      loss against f32; every gradient against f64, allowing the f32 step's
-     own rounding); the BST kernels at that step's own inputs; the
+     own rounding; on the batch rows with no relu input at a kink, where
+     rounding could change the branch: BST has no relu, and the rows kept
+     are printed); the BST kernels at that step's own inputs; the
      train step's time (CUDA events, host wall), ex/s and device idle share
      (torch.profiler);
   9. the golden recipe of tests/golden_common.py for BST and DIN on the
@@ -49,11 +51,16 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      own q, k, v against their twins, their bounds and SDPA with and without
      a mask; the train step profiled; the export served over HTTP; the
      golden recipe, gated on its band;
- 12. PNN, xDeepFM and FiBiNET at full width (config defaults, real tables,
-     B=4096) train 8 steps each through cli.main on cuda; each best export
-     predicted by Predictor on cuda against the CPU; each golden recipe on
-     cuda (PNN gated on its band; xDeepFM and FiBiNET, whose bands are only
-     1.3-1.4 sigma of their rerun spread, on MIN_EDGE, band printed).
+ 12. the rest of the zoo at full width (config defaults, real tables,
+     B=4096): PNN, xDeepFM, FiBiNET, DeepCrossing, DCN, DCNv2, GDCN,
+     GenericDNN, DeepFM, FFM, FwFM, AFM, NFM, DLRM, FinalMLP and MaskNet
+     train 8 steps each through cli.main on cuda with no hand kernel
+     launched; each best export predicted by Predictor on cuda against the
+     CPU; one DeepFM train step (no tower BN, dropout 0) against the f64 CPU
+     step as phase 8; the DeepFM and DCNv2 train steps profiled as phase 8's;
+     each golden recipe on cuda, gated on its band, or on MIN_EDGE with the
+     band printed for GOLDEN_EDGE_ONLY, whose bands are under 2 sigma of
+     their own rerun spread.
 
 Each main path's kernel launch counts are set to 0 just before it and read
 just after: a kernel of the path that never launched fails the run.  The
@@ -113,6 +120,9 @@ BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 # phase 8: a cuda gradient may also be off the f64 step by this many times the
 # f32 CPU step's own largest error in that tensor (step_gradient_ratios)
 STEP_NOISE = 4
+# a relu input within this share of its call's max|x| of 0 may change sides
+# under the f32 rounding of either device (kink_free_rows)
+KINK_MARGIN = 1e-5
 # main path 2: cli.main trains full-width BST at B=4096, evals every
 # BST_EVAL_EVERY steps, then resumes to BST_RESUME_STEPS
 BST_BATCH = 4096
@@ -121,8 +131,11 @@ BST_EVAL_EVERY = 20
 BST_RESUME_STEPS = 50
 DIN_TRAIN_STEPS = 8
 STEP_ITERS = 20  # train steps timed / profiled in phases 8 and 11
-# phase 12: full-width training steps of each model on PNN's field surface
-ZOO_MODELS = ("PNN", "xDeepFM", "FiBiNET")
+# phase 12: full-width training steps of each model that runs no hand kernel
+ZOO_MODELS = ("PNN", "xDeepFM", "FiBiNET", "DeepCrossing", "DCN", "DCNv2", "GDCN",
+              "GenericDNN", "DeepFM", "FFM", "FwFM", "AFM", "NFM", "DLRM", "FinalMLP",
+              "MaskNet")
+ZOO_PROFILED = ("DeepFM", "DCNv2")  # their train steps profiled, as phase 8's
 ZOO_TRAIN_STEPS = 8
 ZOO_PREDICT_BATCH = 1024
 # the golden recipe of tests/golden_common.py (which imports the JAX
@@ -132,13 +145,17 @@ ZOO_PREDICT_BATCH = 1024
 # has, 32 eval batches from seed 5000; MIN_EDGE is the AUC that tells a
 # live model from a dead one
 GOLDEN_SEED, GOLDEN_BATCH, GOLDEN_STEPS, GOLDEN_LR, GOLDEN_EVAL_BATCHES = 3, 128, 60, 0.005, 32
-GOLDEN_PER_MODEL = {"PNN": {"steps": 800, "lr": 0.02}, "FiBiNET": {"steps": 200, "lr": 0.02},
-                    "BST": {"steps": 300, "lr": 0.01}}
+GOLDEN_PER_MODEL = {"AFM": {"steps": 200, "lr": 0.02}, "DeepFM": {"steps": 800, "lr": 0.02},
+                    "FFM": {"steps": 1400, "lr": 0.01}, "FwFM": {"steps": 200, "lr": 0.02},
+                    "NFM": {"steps": 200, "lr": 0.02}, "PNN": {"steps": 800, "lr": 0.02},
+                    "FiBiNET": {"steps": 200, "lr": 0.02}, "BST": {"steps": 300, "lr": 0.01},
+                    "DCN": {"steps": 150}}
 GOLDEN_OVERRIDES = {"hidden_units": (64, 32), "output_dimension": 16,
-                    "cin_layer_feature_maps": (8, 8)}
+                    "cin_layer_feature_maps": (8, 8), "attention_factor": 16}
 MIN_EDGE = 0.57
-# models whose band is too narrow for another init draw: gated on MIN_EDGE
-GOLDEN_EDGE_ONLY = ("xDeepFM", "FiBiNET")
+# models whose band is under 2 sigma of their own rerun spread, too narrow
+# for another init draw: gated on MIN_EDGE
+GOLDEN_EDGE_ONLY = ("xDeepFM", "FiBiNET", "AFM", "NFM", "GenericDNN", "FinalMLP")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -419,13 +436,14 @@ def train_cli(model: str, model_dir: str, steps: int, extra=()) -> dict:
     return final
 
 
-def profile_train_step(trainer, batches) -> dict:
+def profile_train_step(trainer, batches, kernel: str | None) -> dict:
     """Where a train step's time goes: device ms of one step from CUDA
     events around STEP_ITERS steps launched back to back (the steady pipeline,
     host gaps included), the median host wall of a step that ends in a
     synchronize, and the device busy time per step (torch.profiler, every
     kernel and copy: one stream, so their sum is the busy time).  Fails if
-    no BST kernel ran: both training paths (BST, AutoInt) run them."""
+    no ``kernel`` ran (BST and AutoInt run the BST kernels), or with
+    ``kernel=None`` if any hand kernel ran."""
     from torch.profiler import ProfilerActivity, profile
 
     for hb in batches[:3]:
@@ -454,17 +472,22 @@ def profile_train_step(trainer, batches) -> dict:
     for e in events:
         by_name[e.name] += e.time_range.elapsed_us() / STEP_ITERS / 1e3
     busy_ms = sum(by_name.values())
-    if not any("bst_attention" in name for name in by_name):
-        raise AssertionError("the profiled train steps ran no bst_attention kernel")
+    if kernel is not None and not any(kernel in name for name in by_name):
+        raise AssertionError(f"the profiled train steps ran no {kernel} kernel")
+    hand = [n for n in by_name if "din_attention" in n or "bst_attention" in n]
+    if kernel is None and hand:
+        raise AssertionError(f"the profiled train steps ran hand kernels: {hand}")
     return {"step_ms": step_ms, "wall_ms": float(np.median(walls)) * 1e3,
             "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / step_ms,
             "device_ops_per_step": len(events) / STEP_ITERS,
             "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]}
 
 
-def golden_auc(name: str, device: str, model_dir: str) -> float:
+def golden_auc(name: str, device: str, model_dir: str, init_seed: int = GOLDEN_SEED) -> float:
     """tests/golden_common.py's fixed-seed recipe for ``name`` (GOLDEN_*
-    above) through the port's Trainer; returns the eval AUC."""
+    above) through the port's Trainer; returns the eval AUC.  ``init_seed``
+    seeds the weights and the dropout stream, as golden_common's trainer
+    seed does; the data stay those of GOLDEN_SEED."""
     from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
     from recalgorithm_tpu_torch.features.schema import wechat_schema
     from recalgorithm_tpu_torch.models import get_model
@@ -479,10 +502,12 @@ def golden_auc(name: str, device: str, model_dir: str) -> float:
     fields = {f.name for f in dataclasses.fields(cfg_cls)}
     cfg = cfg_cls(batch_size=batch,
                   **{k: v for k, v in GOLDEN_OVERRIDES.items() if k in fields})
-    model = model_cls(cfg, wechat_schema(gen.vocab_sizes()), torch.Generator().manual_seed(seed))
-    trainer = Trainer(model, cfg.task_names, optimizers.build(cfg.optimizer, lr),
+    schema = wechat_schema(gen.vocab_sizes())
+    model = model_cls(cfg, schema, torch.Generator().manual_seed(init_seed))
+    tasks = tuple(cfg.task_names) or (schema.labels[0],)  # () is the first label
+    trainer = Trainer(model, tasks, optimizers.build(cfg.optimizer, lr),
                       TrainerConfig(model_dir=model_dir, train_steps=steps, log_every=1000,
-                                    save_checkpoints_steps=0, seed=seed), device=device)
+                                    save_checkpoints_steps=0, seed=init_seed), device=device)
     ev = trainer.train_and_evaluate(
         gen.batches(batch, steps),
         lambda: gen.batches(batch, GOLDEN_EVAL_BATCHES, start_seed=5000),
@@ -549,63 +574,102 @@ def step_gradient_ratios(gpu: dict, cpu: dict, exact: dict, zero: set[str]) -> d
     return ratios
 
 
-def step_phase(name: str, best_dir: str, capture_module, zero: set[str], card: str,
-               kind: str) -> dict:
-    """One full-width train step of ``name`` (loss and every gradient) on
-    cuda, from the weights of ``best_dir``, held against the same step on the
-    CPU, dropout off so both draw nothing; the BST kernels at the inputs of
-    that step's first attention call (``capture_module.bst_mha``, the entry
-    the model calls), against their twins, timed beside their bounds and
-    SDPA; the train step profiled (config defaults).  ``zero``: the
-    parameters whose true gradient is 0.  Returns bst_kernels_vs_twins's
-    report at the captured inputs."""
-    from recalgorithm_tpu_torch import convert
-    from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
-    from recalgorithm_tpu_torch.features.schema import wechat_schema
+def make_trainer(name: str, schema, weights: dict, cfg, device: str, model_dir: str):
+    """A Trainer of ``name`` at ``cfg`` (its optimizer and learning rate) on
+    ``device`` from ``weights``, an export's state dict; keys the model does
+    not have (a BN tower that ``cfg`` leaves out) are left out, and a key
+    the weights lack fails."""
     from recalgorithm_tpu_torch.models import get_model
     from recalgorithm_tpu_torch.train import optimizers
     from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig
 
+    model = get_model(name)[1](cfg, schema)
+    own = model.state_dict()
+    if set(own) - set(weights):
+        raise AssertionError(f"{name}: the export lacks {sorted(set(own) - set(weights))}")
+    model.load_state_dict({k: v for k, v in weights.items() if k in own})
+    return Trainer(model, tuple(cfg.task_names) or (schema.labels[0],),
+                   optimizers.build(cfg.optimizer, cfg.learning_rate),
+                   TrainerConfig(model_dir=os.path.join(model_dir, "unused")), device=device)
+
+
+def kink_free_rows(model, batch) -> torch.Tensor:
+    """The rows of ``batch`` whose every relu input in a train-mode forward
+    of ``model`` lies at least KINK_MARGIN x that call's max|x| from 0.  A
+    relu input closer to 0 can fall on the other side under either device's
+    f32 rounding, and that example's gradient is then another function's, not
+    a rounding error away.  Valid for models without a train-mode BatchNorm:
+    dropping a row changes no other row (fails otherwise)."""
+    from recalgorithm_tpu_torch.ops.activations import BatchNorm
+
+    inputs = []
+    relu = torch.relu  # nn.ReLU and F.relu call it too
+
+    def recording(x):
+        inputs.append(x.detach())
+        return relu(x)
+
+    torch.relu = recording
+    try:
+        model.train()
+        with torch.no_grad():
+            model(batch)
+    finally:
+        torch.relu = relu
+    keep = torch.ones(len(batch["labels"]), dtype=torch.bool)
+    for x in inputs:
+        near = x.abs() < KINK_MARGIN * x.abs().max()
+        keep &= ~near.reshape(len(keep), -1).any(dim=1).cpu()
+    if not keep.all() and any(isinstance(m, BatchNorm) for m in model.modules()):
+        raise AssertionError("rows at a relu kink in a model with a train-mode BatchNorm: "
+                             "dropping them would change the other rows")
+    return keep
+
+
+def step_setup(name: str, best_dir: str, **overrides) -> tuple:
+    """What the held train step of ``name`` starts from: the real-size
+    schema, the weights of ``best_dir``, the config defaults with
+    ``overrides`` and dropout 0 (so no side draws), and its batch (B=4096,
+    seed 1)."""
+    from recalgorithm_tpu_torch import convert
+    from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.models import get_model
+
     gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=7, vocab_scale=1.0))
-    schema = wechat_schema(gen.vocab_sizes())
-    weights = convert.load_export(best_dir)
-    cfg_cls, model_cls = get_model(name)
+    return (wechat_schema(gen.vocab_sizes()), convert.load_export(best_dir),
+            get_model(name)[0](dropout_rate=0.0, **overrides), gen.batch(BST_BATCH, 1))
 
-    def trainer(device, cfg):
-        model = model_cls(cfg, schema)
-        model.load_state_dict(weights)
-        return Trainer(model, cfg.task_names, optimizers.build("adam", cfg.learning_rate),
-                       TrainerConfig(model_dir=os.path.join(best_dir, "unused")),
-                       device=device)
 
-    hb = gen.batch(BST_BATCH, 1)
+def step_vs_cpu(name: str, best_dir: str, zero: set[str], **overrides) -> None:
+    """One full-width train step of ``name`` (loss and every gradient) on
+    cuda (``step_setup``), held against the same step on the CPU: the loss
+    against the f32 step, each gradient against the f64 step
+    (``step_gradient_ratios``; ``zero``: the parameters whose true gradient
+    is 0).  The batch's rows are ``kink_free_rows`` of the f64 model."""
+    schema, weights, cfg, hb = step_setup(name, best_dir, **overrides)
 
-    def one_step(device, f64=False):
-        tr = trainer(device, cfg_cls(dropout_rate=0.0))
+    def put(tr, hb, f64):
         batch = tr._put_batch(hb)
         if f64:
             tr.model.double()
             batch = {k: x.double() if x.is_floating_point() else x for k, x in batch.items()}
+        return batch
+
+    tr = make_trainer(name, schema, weights, cfg, "cpu", best_dir)
+    keep = kink_free_rows(tr.model, put(tr, hb, True)).numpy()
+    hb = {k: x[keep] for k, x in hb.items()}
+
+    def one_step(device, f64=False):
+        tr = make_trainer(name, schema, weights, cfg, device, best_dir)
+        batch = put(tr, hb, f64)
         tr.model.train()
         loss, _ = tr._loss_and_logits(batch)
         loss.backward()
         return float(loss.detach()), {n: p.grad.double().cpu()
                                       for n, p in tr.model.named_parameters()}
 
-    captured = {}
-    plain_mha = capture_module.bst_mha
-
-    def capture(q, k, v, lengths, *rest):
-        if not captured:  # the first attention call of the step
-            captured.update(q=q.detach().clone(), k=k.detach().clone(),
-                            v=v.detach().clone(), lengths=lengths.clone())
-        return plain_mha(q, k, v, lengths, *rest)
-
-    capture_module.bst_mha = capture
-    try:
-        gpu_loss, gpu_grads = one_step("cuda")
-    finally:
-        capture_module.bst_mha = plain_mha
+    gpu_loss, gpu_grads = one_step("cuda")
     cpu_loss, cpu_grads = one_step("cpu")
     _, exact = one_step("cpu", f64=True)
 
@@ -614,10 +678,11 @@ def step_phase(name: str, best_dir: str, capture_module, zero: set[str], card: s
 
     ratios = step_gradient_ratios(gpu_grads, cpu_grads, exact, zero)
     worst = max(ratios, key=ratios.get)
-    print(f"{name} train step B={BST_BATCH}: loss cuda {gpu_loss} cpu {cpu_loss}; over "
-          f"{len(exact)} gradient tensors against the f64 CPU step, cuda within "
-          f"{max_err(gpu_grads):.3e}, f32 CPU within {max_err(cpu_grads):.3e}; the "
-          f"worst tensor, {worst}, uses {ratios[worst]:.4f} of its allowance")
+    print(f"{name} train step, {int(keep.sum())} of B={BST_BATCH} rows away from a relu kink "
+          f"{overrides or ''}: loss cuda {gpu_loss} cpu "
+          f"{cpu_loss}; over {len(exact)} gradient tensors against the f64 CPU step, cuda "
+          f"within {max_err(gpu_grads):.3e}, f32 CPU within {max_err(cpu_grads):.3e}; the "
+          f"worst tensor, {worst}, uses {ratios[worst]:.4f} of its allowance", flush=True)
     if not (math.isfinite(gpu_loss) and abs(gpu_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)):
         raise AssertionError("the cuda train step's loss is not the CPU's within rtol 1e-5")
     beyond = {n: r for n, r in ratios.items() if not r <= 1.0}
@@ -625,16 +690,21 @@ def step_phase(name: str, best_dir: str, capture_module, zero: set[str], card: s
         raise AssertionError(f"gradients beyond {GRAD_TOL} x max|g| + {STEP_NOISE} x the "
                              f"f32 CPU step's error, as shares of the allowance: {beyond}")
 
-    q, k, v, lengths = (captured[x] for x in ("q", "k", "v", "lengths"))
-    g = torch.from_numpy(np.random.default_rng(0).normal(size=tuple(q.shape))
-                         .astype(np.float32)).cuda()
-    r = bst_kernels_vs_twins(q, k, v, g, lengths, timed=True)
-    lens = lengths.cpu().numpy()
-    print(f"BST kernels at the {name} train step's first attention inputs "
-          f"({tuple(q.shape)}, mean len {lens.mean():.2f}): {json.dumps(r, default=str)}")
 
-    tr = trainer("cuda", cfg_cls())
-    prof = profile_train_step(tr, [gen.batch(BST_BATCH, 10 + i) for i in range(4)])
+def train_step_profile(name: str, best_dir: str, card: str, kind: str,
+                       kernel: str | None) -> None:
+    """``name``'s train step at the config defaults from the weights of
+    ``best_dir``, profiled (``profile_train_step``) and printed."""
+    from recalgorithm_tpu_torch import convert
+    from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.models import get_model
+
+    gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=7, vocab_scale=1.0))
+    schema = wechat_schema(gen.vocab_sizes())
+    tr = make_trainer(name, schema, convert.load_export(best_dir), get_model(name)[0](),
+                      "cuda", best_dir)
+    prof = profile_train_step(tr, [gen.batch(BST_BATCH, 10 + i) for i in range(4)], kernel)
     print(f"{name} train step on {kind} ({card}), B={BST_BATCH}, config defaults: "
           f"{prof['step_ms']} ms a step (CUDA events over {STEP_ITERS} steps back to "
           f"back; {BST_BATCH / prof['step_ms'] * 1e3:.0f} ex/s), host wall of a "
@@ -643,6 +713,45 @@ def step_phase(name: str, best_dir: str, capture_module, zero: set[str], card: s
           f"{prof['device_ops_per_step']:.0f} kernels+copies per step")
     for kname, ms in prof["top"]:
         print(f"    {ms:9.5f} ms  {kname[:100]}")
+
+
+def step_phase(name: str, best_dir: str, capture_module, zero: set[str], card: str,
+               kind: str) -> dict:
+    """``step_vs_cpu`` for ``name``, a model on the BST kernels; the BST
+    kernels at the inputs of the first attention call (``capture_module.
+    bst_mha``, the entry the model calls) of that step's forward on cuda over
+    all of its batch's rows, against their twins, timed beside their bounds
+    and SDPA; the train step profiled (config defaults).  Returns
+    bst_kernels_vs_twins's report at the captured inputs."""
+    step_vs_cpu(name, best_dir, zero)
+
+    schema, weights, cfg, hb = step_setup(name, best_dir)
+    tr = make_trainer(name, schema, weights, cfg, "cuda", best_dir)
+    captured = {}
+    plain_mha = capture_module.bst_mha
+
+    def capture(q, k, v, lengths, *rest):
+        if not captured:
+            captured.update(q=q.detach().clone(), k=k.detach().clone(),
+                            v=v.detach().clone(), lengths=lengths.clone())
+        return plain_mha(q, k, v, lengths, *rest)
+
+    capture_module.bst_mha = capture
+    try:
+        tr.model.train()
+        with torch.no_grad():
+            tr.model(tr._put_batch(hb))
+    finally:
+        capture_module.bst_mha = plain_mha
+
+    q, k, v, lengths = (captured[x] for x in ("q", "k", "v", "lengths"))
+    g = torch.from_numpy(np.random.default_rng(0).normal(size=tuple(q.shape))
+                         .astype(np.float32)).cuda()
+    r = bst_kernels_vs_twins(q, k, v, g, lengths, timed=True)
+    lens = lengths.cpu().numpy()
+    print(f"BST kernels at the {name} train step's first attention inputs "
+          f"({tuple(q.shape)}, mean len {lens.mean():.2f}): {json.dumps(r, default=str)}")
+    train_step_profile(name, best_dir, card, kind, "bst_attention")
     return r
 
 
@@ -777,11 +886,12 @@ def train_and_resume(name: str, model_dir: str, layers: int) -> tuple[dict, str]
     return {k: counts[k] for k in BST_KERNELS}, best_dir
 
 
-def zoo_phase(work: str, gen) -> None:
+def zoo_phase(work: str, gen) -> dict[str, str]:
     """Each of ZOO_MODELS (config defaults, real tables) trains
     ZOO_TRAIN_STEPS steps at B=4096 through cli.main on cuda with a final
     eval and predictions; its best export predicted by Predictor on cuda is
-    held to the CPU within TOL.  These paths run no hand kernel."""
+    held to the CPU within TOL.  These paths run no hand kernel.  Returns
+    each model's best export directory."""
     from recalgorithm_tpu_torch.cli.main import EVAL_BATCHES
     from recalgorithm_tpu_torch.features.schema import wechat_schema
     from recalgorithm_tpu_torch.models import get_model
@@ -789,7 +899,9 @@ def zoo_phase(work: str, gen) -> None:
 
     schema = wechat_schema(gen.vocab_sizes())
     batch = gen.batch(ZOO_PREDICT_BATCH, 5)
+    best_dirs = {}
     for name in ZOO_MODELS:
+        t0 = time.perf_counter()
         model_dir = os.path.join(work, name)
         zero_counts()
         final = train_cli(name, model_dir, ZOO_TRAIN_STEPS)
@@ -802,7 +914,7 @@ def zoo_phase(work: str, gen) -> None:
             n_rows = sum(1 for _ in f) - 1
         if n_rows != EVAL_BATCHES * BST_BATCH:
             raise AssertionError(f"{name} predictions.csv: {n_rows} rows")
-        best_dir = Predictor.latest_best(model_dir)
+        best_dir = best_dirs[name] = Predictor.latest_best(model_dir)
         cfg_cls, model_cls = get_model(name)
         got = Predictor(model_cls(cfg_cls(), schema), best_dir,
                         device="cuda").predict_batch(batch)["read_comment"]
@@ -810,7 +922,9 @@ def zoo_phase(work: str, gen) -> None:
                          device="cpu").predict_batch(batch)["read_comment"]
         err = check_close(f"{name} export on cuda vs CPU", got, want)
         print(f"{name}: best export {os.path.basename(best_dir)}; Predictor B="
-              f"{ZOO_PREDICT_BATCH} on cuda vs CPU max abs err {err:.3e}", flush=True)
+              f"{ZOO_PREDICT_BATCH} on cuda vs CPU max abs err {err:.3e}; "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return best_dirs
 
 
 def card_line() -> str:
@@ -1149,8 +1263,14 @@ def main() -> int:
     golden_phase(("AutoInt",), work)
 
     phase(f"12. {', '.join(ZOO_MODELS)} at full width on cuda: {ZOO_TRAIN_STEPS} steps "
-          "through cli.main, the best export against the CPU, the golden recipes")
-    zoo_phase(work, gen)
+          "through cli.main, the best export against the CPU; a DeepFM train step vs "
+          f"the CPU; {' and '.join(ZOO_PROFILED)} train steps profiled; the golden recipes")
+    zoo_dirs = zoo_phase(work, gen)
+    # no tower BN: a bias in front of a train-mode BN has a rounding-noise
+    # gradient (PNN's case in tests/test_torch_train.py); nothing else is 0
+    step_vs_cpu("DeepFM", zoo_dirs["DeepFM"], set(), batch_norm=False)
+    for name in ZOO_PROFILED:
+        train_step_profile(name, zoo_dirs[name], card, kind, kernel=None)
     golden_phase(ZOO_MODELS, work)
 
     report = {"kernels": [din_entry, *bst_entries(

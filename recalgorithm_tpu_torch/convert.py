@@ -15,8 +15,9 @@ rules, which :func:`from_flax` and :func:`to_flax` apply both ways:
     ``running_mean``/``running_var``; torch's ``num_batches_tracked``
     has no flax counterpart;
   * ``FieldEmbedder_0`` -> ``embedder``, Dice's ``BatchNorm_0`` -> ``bn``,
-    and tables sit in ``embed.tables``; table rows keep their ROW_ALIGN
-    padding.
+    and the tables of an ``embed`` collection (``embed_w`` for
+    FirstOrderLogit's) sit in its ``tables``; table rows keep their
+    ROW_ALIGN padding.
 
 Exports keep the JAX package's layout (``train/loop.py``,
 ``_Checkpointer.maybe_export_best``): ``<model_dir>/export/best_<step>/``
@@ -40,6 +41,7 @@ _MODULES = {"FieldEmbedder_0": "embedder", "BatchNorm_0": "bn"}
 _MODULES_BACK = {v: k for k, v in _MODULES.items()}
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _STATS_BACK = {v: k for k, v in _STATS.items()}
+_TABLE_COLLECTIONS = ("embed", "embed_w")  # EmbeddingCollection names
 EXPORT_FILE = "params.npz"
 
 
@@ -69,7 +71,7 @@ def from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     for collection in ("params", "batch_stats"):
         for path, arr in _flatten(variables.get(collection, {})).items():
             mods = [_MODULES.get(m, m) for m in path[:-1]]
-            if mods and mods[-1] == "embed":
+            if mods and mods[-1] in _TABLE_COLLECTIONS:
                 mods.append("tables")
             leaf = path[-1]
             if collection == "batch_stats":
@@ -92,7 +94,7 @@ def to_flax(model: nn.Module) -> dict:
         if leaf == "num_batches_tracked":
             continue
         arr = t.detach().cpu().numpy().copy()
-        if mods[-2:] == ["embed", "tables"]:
+        if len(mods) >= 2 and mods[-2] in _TABLE_COLLECTIONS and mods[-1] == "tables":
             mods = mods[:-1]
         path = tuple(_MODULES_BACK.get(m, m) for m in mods)
         if leaf in _STATS_BACK:

@@ -12,8 +12,8 @@ package makes the schema an explicit, hashable dataclass tree:
   * batches are plain dicts of numpy arrays, moved to the model's device by
     the predictor.
 
-Own copy of ``recalgorithm_tpu/features/schema.py`` (WeChat schema only): the
-PyTorch package imports nothing of the JAX package.
+Own copy of ``recalgorithm_tpu/features/schema.py`` (the WeChat and Douban
+schemas): the PyTorch package imports nothing of the JAX package.
 
 Feature kinds mirror the reference's column types:
   DenseFeature      <- fc.numeric_column            (already log1p'd by the ETL)
@@ -231,5 +231,72 @@ def wechat_schema(vocab_sizes: Mapping[str, int] | None = None) -> Schema:
             ),
         ),
         labels=WECHAT_LABELS,
+        vocab_sizes=sizes,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The Douban movie dataset schema (reference
+# dataset/douban_moviedata_10m/DataGenerator.py — abandoned WIP upstream:
+# its vocabulary/feature steps are commented out and it was never run to
+# completion.  The column list, separators, min_count thresholds, 360-day
+# window, last-20 history and rating>=4 label below all come from that
+# file's code and comments (DataGenerator.py:30-172).  The JAX package's
+# data/douban.py completes that pipeline; this package has the schema only).
+# ---------------------------------------------------------------------------
+
+DOUBAN_DENSE_NAMES: tuple[str, ...] = (
+    "u_days_since_last_rating",   # 最近一次评分距今天数差
+    "u_last_rating",              # 最近一次评分分数
+    "u_rating_360d_max",          # 360天内所有评分的最大值/最小值/平均值
+    "u_rating_360d_min",
+    "u_rating_360d_mean",
+    "c_user_director_rating_360d_max",  # 360天内同一导演评分的 max/min/mean
+    "c_user_director_rating_360d_min",
+    "c_user_director_rating_360d_mean",
+)
+
+DOUBAN_LABELS: tuple[str, ...] = ("rating_ge_4",)  # 大于等于4分为正样本
+
+DOUBAN_MAX_HISTORY = 20  # 只取最近20个评分的电影 (DataGenerator.py:130-131)
+
+
+def douban_schema(vocab_sizes: Mapping[str, int] | None = None) -> Schema:
+    """Build the Douban movie dataset schema (completed WIP parity)."""
+    sizes = {
+        # Rough douban_moviedata_10m cardinalities — defaults only, the
+        # pipeline overrides them with the compiled vocab sizes.
+        "USER_MD5": 100000,
+        "MOVIE_ID": 60000,
+        "DIRECTOR_IDS": 20000,
+        "ACTOR_IDS": 60000,
+        "GENRES": 40,
+        "LANGUAGES": 100,
+        "REGIONS": 100,
+        "YEAR": 120,
+    }
+    if vocab_sizes:
+        sizes.update(vocab_sizes)
+    return Schema(
+        dense=tuple(DenseFeature(n) for n in DOUBAN_DENSE_NAMES),
+        categorical=(
+            CategoricalFeature("USER_MD5", "USER_MD5"),
+            CategoricalFeature("MOVIE_ID", "MOVIE_ID"),
+            # 导演只取第1个 (DataGenerator.py:103-104); shares the
+            # DIRECTOR_IDS vocabulary
+            CategoricalFeature("DIRECTOR_ID", "DIRECTOR_IDS"),
+            CategoricalFeature("YEAR", "YEAR"),
+        ),
+        sequence=(
+            # last-20 movie history shares the MOVIE_ID table (the WeChat
+            # feedid <-> sequence sharing pattern)
+            SequenceFeature("HISTORY_MOVIES", "MOVIE_ID", DOUBAN_MAX_HISTORY),
+            SequenceFeature("GENRES", "GENRES", 8),
+            SequenceFeature("ACTOR_IDS", "ACTOR_IDS", 16),
+            SequenceFeature("LANGUAGES", "LANGUAGES", 4),
+            SequenceFeature("REGIONS", "REGIONS", 4),
+        ),
+        cross=(),
+        labels=DOUBAN_LABELS,
         vocab_sizes=sizes,
     )

@@ -1,7 +1,7 @@
 """Shared model scaffolding: configs, field groupings, the model registry.
 
-Counterpart of ``recalgorithm_tpu/models/common.py`` (the parts DIN, BST,
-AutoInt, PNN, xDeepFM and FiBiNET use).  "W&D family" models (Wide&Deep,
+Counterpart of ``recalgorithm_tpu/models/common.py`` (all of it but
+``sigmoid_tasks``, which no model calls).  "W&D family" models (Wide&Deep,
 DeepCrossing, DCN, DIN, BST, MMOE, PLE) use fixed per-field dims
 (wide_and_deep.py:108-114, mmoe.py:103-109); the "FM family" (DeepFM, FFM,
 FwFM, AFM, NFM, PNN, xDeepFM, FiBiNET, and AutoInt) one uniform
@@ -44,12 +44,35 @@ SCALAR_CAT_FIELDS = (
 )
 
 
+def schema_fields(schema: Schema, *, sequences: str | None = "mean"
+                  ) -> list[tuple[str, str, str]]:
+    """Generic field list derived from a Schema: every categorical feature
+    as a scalar field, every sequence feature pooled (``sequences`` kind,
+    'mean'/'sum'; None drops them)."""
+    fields = [(f.name, f.vocab, "scalar") for f in schema.categorical]
+    if sequences:
+        fields += [(f.name, f.vocab, sequences) for f in schema.sequence]
+    return fields
+
+
+def reference_or_schema_fields(schema: Schema, *, sequences: str | None = "mean"
+                               ) -> list[tuple[str, str, str]]:
+    """The reference's 6 scalar WeChat fields on a WeChat-shaped schema (so
+    golden bands and parity hold), :func:`schema_fields` on any other
+    (douban, ...)."""
+    names = {f.name for f in schema.categorical}
+    if set(SCALAR_CAT_FIELDS) <= names:
+        return [(n, n, "scalar") for n in SCALAR_CAT_FIELDS]
+    return schema_fields(schema, sequences=sequences)
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainFlags:
     """Common training flags (reference header, wide_and_deep.py:24-39).
 
-    ``cli/main.py`` builds the trainer from them.  Only ``optimizer="adam"``
-    and ``precision="f32"`` are ported.  The JAX package's
+    ``cli/main.py`` builds the trainer from them.  ``optimizer`` is one of
+    adam, adagrad, rmsprop and sgd (``train/optimizers.build``); only
+    ``precision="f32"`` is ported.  The JAX package's
     ``scoped_vmem_limit_kib`` is an XLA-on-TPU compiler budget with no
     counterpart here and is not carried.
     """
@@ -116,6 +139,34 @@ class FieldEmbedder(nn.Module):
             else:
                 raise ValueError(f"unknown field kind {kind!r}")
         return out
+
+
+class FirstOrderLogit(nn.Module):
+    """FM first-order term: a per-id scalar weight summed over ``fields``
+    (batch_key, vocab, kind in {'scalar', 'sum', 'mean'}), plus ``bias``.
+
+    The reference's one-hot indicators -> Dense(1) (deepfm.py:179-181) as a
+    sparse lookup; PAD/OOV ids (0) contribute nothing.  The width-1 tables
+    start at zero and sit in a collection named ``embed_w``, as in the JAX
+    module (``params/first_order/embed_w/<vocab>``)."""
+
+    def __init__(self, schema: Schema, fields: Sequence[tuple[str, str, str]]):
+        super().__init__()
+        self.fields = list(fields)
+        self.embed_w = EmbeddingCollection({
+            vocab: TableSpec(vocab, schema.vocab_sizes[vocab], 1, init="zeros")
+            for _, vocab, _ in self.fields})
+        self.bias = nn.Parameter(torch.zeros(1))
+
+    def forward(self, batch) -> torch.Tensor:  # (B,)
+        out = torch.zeros((), device=self.bias.device, dtype=self.bias.dtype)
+        for key, vocab, kind in self.fields:
+            if kind == "scalar":
+                w = self.embed_w.embed_scalar(vocab, batch[key])[:, 0]
+            else:
+                w = self.embed_w.embed_pooled(vocab, batch[key], kind)[:, 0]
+            out = out + w
+        return out + self.bias[0]
 
 
 # ---------------------------------------------------------------------------

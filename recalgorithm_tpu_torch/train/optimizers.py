@@ -1,12 +1,17 @@
 """Optimizers with reference parity, and learning-rate schedules.
 
-Counterpart of ``recalgorithm_tpu/train/optimizers.py`` (``build("adam")``
-and ``make_schedule`` so far; Adagrad, FTRL, RMSProp, SGD, LazyAdam and the
-Wide&Deep dual optimizer wait for the models that use them).
+Counterpart of ``recalgorithm_tpu/train/optimizers.py``: ``build`` for
+adam, adagrad, rmsprop and sgd, and ``make_schedule``.  FTRL, LazyAdam and
+the Wide&Deep dual optimizer wait for the models that use them (Wide&Deep,
+DIEN).
 
 ``torch.optim.Adam`` computes optax's Adam update:
-``lr * m_hat / (sqrt(v_hat) + eps)`` with bias-corrected moments.  A
-schedule is a function of the 0-based count of updates already applied, as
+``lr * m_hat / (sqrt(v_hat) + eps)`` with bias-corrected moments, and
+``torch.optim.SGD`` without momentum optax's ``sgd``.  Adagrad and RMSProp
+are not torch's: optax puts eps inside the square root (torch outside), and
+its RMSProp decays by 0.9 (torch 0.99), so :class:`Adagrad` and
+:class:`RMSProp` below compute optax's formulas.  A schedule is a function
+of the 0-based count of updates already applied, as
 ``optax.scale_by_schedule`` evaluates it; :class:`Optimizer` sets the rate
 before each step.
 """
@@ -57,6 +62,57 @@ def make_schedule(learning_rate: float, schedule: str = "constant",
                          else body(step - warmup_steps))
 
 
+class Adagrad(torch.optim.Optimizer):
+    """``optax.adagrad(lr, initial_accumulator_value, eps)``: acc += g^2, then
+    p -= lr * g * rsqrt(acc + eps) where acc > 0 (else no step).  The
+    accumulator starts at the reference's 1e-8 (wide_and_deep.py:264-265),
+    as the JAX package's ``build("adagrad")`` sets it."""
+
+    def __init__(self, params, lr: float, initial_accumulator_value: float = 1e-8,
+                 eps: float = 1e-7):
+        super().__init__(params, dict(lr=lr, initial_accumulator_value=initial_accumulator_value,
+                                      eps=eps))
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["sum_of_squares"] = torch.full_like(
+                        p, group["initial_accumulator_value"])
+                acc = state["sum_of_squares"]
+                acc.add_(p.grad.square())
+                scale = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]),
+                                    torch.zeros_like(acc))
+                p.add_(scale * p.grad, alpha=-group["lr"])
+
+
+class RMSProp(torch.optim.Optimizer):
+    """``optax.rmsprop(lr, decay, eps)`` (not centered, no momentum, nu
+    starting at 0): nu = (1 - decay) g^2 + decay nu, then
+    p -= lr * g * rsqrt(nu + eps)."""
+
+    def __init__(self, params, lr: float, decay: float = 0.9, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for group in self.param_groups:
+            decay = group["decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                nu = state["nu"]
+                nu.copy_((1 - decay) * p.grad.square() + decay * nu)
+                p.add_(torch.rsqrt(nu + group["eps"]) * p.grad, alpha=-group["lr"])
+
+
 class Optimizer:
     """A torch optimizer stepped as optax steps its transformation: the
     scheduled rate of update ``count`` is set before the update."""
@@ -91,7 +147,16 @@ def build(name: str, learning_rate: float | Schedule
     schedule = learning_rate if callable(learning_rate) else (lambda step: learning_rate)
     name = name.lower()
     if name == "adam":
-        return lambda params: Optimizer(
-            torch.optim.Adam(params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8),
-            schedule)
-    raise NotImplementedError(f"optimizer {name!r} is not ported yet (adam only)")
+        make = lambda params, lr: torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    elif name == "adagrad":
+        make = Adagrad
+    elif name == "rmsprop":
+        make = RMSProp
+    elif name == "sgd":
+        make = torch.optim.SGD
+    elif name in ("ftrl", "lazyadam"):
+        raise NotImplementedError(
+            f"optimizer {name!r} is not ported yet (adam, adagrad, rmsprop and sgd are)")
+    else:
+        raise ValueError(f"unknown optimizer {name!r}")
+    return lambda params: Optimizer(make(params, schedule(0)), schedule)

@@ -2,7 +2,8 @@
 (``step_gradient_ratios``), on the CPU at a small size: the same step in f32
 with the batch rows in another order (the same gradient, other rounding)
 passes; a step whose attention passes dk scaled by 1 + 1e-3 (a kernel fault
-far below the size of any real gradient) fails on w_k."""
+far below the size of any real gradient) fails on w_k.  And the rows the
+gate keeps (``kink_free_rows``): none with a relu input at 0."""
 
 import importlib.util
 import os
@@ -15,6 +16,7 @@ import recalgorithm_tpu_torch.ops.attention as attention
 from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
 from recalgorithm_tpu_torch.features.schema import wechat_schema
 from recalgorithm_tpu_torch.models.bst import BST, BSTConfig
+from recalgorithm_tpu_torch.ops.activations import batch_norm
 from recalgorithm_tpu_torch.train import optimizers
 from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig
 
@@ -65,3 +67,41 @@ def test_step_gate(tmp_path, monkeypatch, case):
     else:
         assert ratios["transformer_0.w_k"] > 1.0, ratios
         assert ratios["transformer_0.w_v"] <= 1.0, ratios  # dv is untouched
+
+
+class _TwoRelus(torch.nn.Module):
+    """x -> relu(W x) by nn.ReLU, then torch.relu(h - 1)."""
+
+    def __init__(self, bn=False):
+        super().__init__()
+        self.lin = torch.nn.Linear(2, 3, bias=False, dtype=torch.float64)
+        with torch.no_grad():
+            self.lin.weight.copy_(torch.tensor([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0]]))
+        self.act = torch.nn.ReLU()
+        if bn:  # a train-mode BN after the model's output, which couples its rows
+            self.bn = batch_norm(3).double()
+
+    def forward(self, batch):
+        out = torch.relu(self.act(self.lin(batch["x"])) - 1.0)
+        return self.bn(out) if hasattr(self, "bn") else out
+
+
+def test_kink_free_rows_refuse_a_batch_norm_model():
+    x = torch.tensor([[3.0, 2.0], [1e-12, 3.0], [2.0, 2.0]], dtype=torch.float64)
+    with pytest.raises(AssertionError, match="BatchNorm"):
+        chip_smoke.kink_free_rows(_TwoRelus(bn=True), {"x": x, "labels": torch.zeros(3, 1)})
+    keep = chip_smoke.kink_free_rows(_TwoRelus(bn=True), {"x": x[::2], "labels": torch.zeros(2, 1)})
+    assert keep.tolist() == [True, True]  # no row dropped: BN is no obstacle
+
+
+def test_kink_free_rows_drop_rows_at_a_relu_kink():
+    x = torch.tensor([[3.0, 2.0],            # kept
+                      [1e-12, 3.0],          # nn.ReLU input at 1e-12
+                      [2.0, 2.0],            # kept
+                      [-1.0, 1.0 + 1e-12],   # nn.ReLU input (-1 + 1 + 1e-12) at 1e-12
+                      [1.0 + 1e-12, 3.0]],   # torch.relu input at 1e-12
+                     dtype=torch.float64)
+    relu = torch.relu
+    keep = chip_smoke.kink_free_rows(_TwoRelus(), {"x": x, "labels": torch.zeros(5, 1)})
+    assert keep.tolist() == [True, False, True, False, False]
+    assert torch.relu is relu

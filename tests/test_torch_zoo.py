@@ -2,34 +2,24 @@
 PNN (IPNN and OPNN, with the L2 regulariser), xDeepFM and FiBiNET against the
 JAX models on the same batch with the JAX weights carried across; the
 ``convert`` round trips; the full-width shapes; the training CLI on the CPU.
-
-Tolerances: eval logits and train-mode logits, losses and BN statistics
-rtol = atol = 1e-5 (f32 on the CPU on both sides, JAX matmuls at "highest"
-precision: summation order only); gradients rtol 1e-4 and atol 1e-5 *
-max|g|, the bar of the port's other parity tests.  Dropout is 0 in the
+Tolerances as tests/torch_zoo_common.py states them.  Dropout is 0 in the
 parity runs, so neither side draws."""
 
-import csv
-from typing import Mapping
-
-import jax
-import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 
-from recalgorithm_tpu.data.synthetic import SyntheticConfig, SyntheticWeChat
 from recalgorithm_tpu.features.schema import wechat_schema
-from recalgorithm_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
-from recalgorithm_tpu_torch import convert
-from recalgorithm_tpu_torch.cli import main as tmain
 from recalgorithm_tpu_torch.features.schema import wechat_schema as t_wechat_schema
 from recalgorithm_tpu_torch.models import get_model
-from recalgorithm_tpu_torch.ops.cuda import bst_attention as bkern
-from recalgorithm_tpu_torch.serving.predictor import Predictor
-
-TOL = dict(rtol=1e-5, atol=1e-5)
-SMALL = dict(hidden_units=(32, 16), dropout_rate=0.0)
+from tests.torch_zoo_common import (
+    SMALL,
+    build_pair,
+    check_cli_raises_without_a_gpu,
+    check_cli_run,
+    check_matches_jax,
+    check_round_trips,
+    wechat_batch,
+)
 
 # case -> (registered name, config overrides for both packages, JAX-only overrides)
 CASES = {
@@ -44,57 +34,14 @@ CASES = {
 }
 
 
-def assert_grad_close(got, want):
-    got, want = np.asarray(got), np.asarray(want)
-    scale = max(float(np.abs(want).max()), 1.0)
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * scale)
-
-
-def _flat(tree, prefix=()):
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, Mapping):
-            out.update(_flat(v, prefix + (k,)))
-        else:
-            out[prefix + (k,)] = np.asarray(v)
-    return out
-
-
-def _unflat(flat):
-    tree = {}
-    for path, v in flat.items():
-        node = tree
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = v
-    return tree
-
-
 @pytest.fixture(scope="module")
 def data():
-    gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=3, vocab_scale=0.005))
-    hb = gen.batch(24, 7)
-    hb["his_read_comment_7d_seq"][0], hb["his_read_comment_7d_seq_len"][0] = 0, 0
-    hb["manual_tag_list"][1] = 0  # an all-PAD mean field
-    return gen, hb
+    return wechat_batch()
 
 
-def _models(case, gen):
-    name, kw, jax_kw = CASES[case]
-    jcfg_cls, jcls = JAX_REGISTRY[name]
-    jmodel = jcls(config=jcfg_cls(**kw, **jax_kw), schema=wechat_schema(gen.vocab_sizes()))
-    cfg_cls, cls = get_model(name)
-    return jmodel, cls(cfg_cls(**kw), t_wechat_schema(gen.vocab_sizes()))
-
-
-def _variables(jmodel, hb, seed):
-    """The JAX init, with BN running statistics drawn away from 0 / 1."""
-    jb = {k: jnp.asarray(x) for k, x in hb.items()}
-    v = jax.device_get(jax.jit(lambda b: jmodel.init(jax.random.key(seed), b))(jb))
-    rng = np.random.default_rng(seed)
-    stats = jax.tree.map(lambda x: rng.uniform(0.3, 3.0, x.shape).astype(np.float32),
-                         v.get("batch_stats", {}))
-    return {"params": v["params"], "batch_stats": stats}
+def models(case, gen):
+    return build_pair(*CASES[case], wechat_schema(gen.vocab_sizes()),
+                      t_wechat_schema(gen.vocab_sizes()))
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -103,79 +50,13 @@ def test_model_matches_jax(data, case):
     regularisation losses, every parameter's gradient of mean(logit) + the
     losses, and the updated BN statistics."""
     gen, hb = data
-    jmodel, model = _models(case, gen)
-    variables = _variables(jmodel, hb, seed=1)
-    jb = {k: jnp.asarray(x) for k, x in hb.items()}
-
-    @jax.jit
-    def jax_run(variables, jb):
-        jeval = jmodel.apply(variables, jb, train=False)["read_comment"]
-
-        def train_loss(params):
-            out, upd = jmodel.apply({"params": params, "batch_stats": variables["batch_stats"]},
-                                    jb, train=True, mutable=["batch_stats", "losses"])
-            reg = sum(jnp.sum(x) for x in jax.tree.leaves(upd.get("losses", {})))
-            return jnp.mean(out["read_comment"]) + reg, (out["read_comment"], upd)
-
-        (_, aux), grads = jax.value_and_grad(train_loss, has_aux=True)(variables["params"])
-        return jeval, aux, grads
-
-    with jax.default_matmul_precision("highest"):
-        jeval, (jtrain, upd), jgrads = jax.device_get(jax_run(variables, jb))
-
-    model.load_state_dict(convert.from_flax(variables))
-    tb = {k: torch.from_numpy(x) for k, x in hb.items()}
-    model.eval()
-    with torch.no_grad():
-        teval, _ = model(tb)
-    np.testing.assert_allclose(teval["read_comment"].numpy(), jeval, **TOL)
-    model.train()
-    launches = bkern.bst_attention_forward_save.launches
-    logits, losses = model(tb)
-    assert bkern.bst_attention_forward_save.launches == launches  # CPU: the twin
-    np.testing.assert_allclose(logits["read_comment"].detach().numpy(), jtrain, **TOL)
-    # the sown losses, (x,) tuples keyed by the module path
-    want_losses = {".".join(p): v for p, v in _flat(upd.get("losses", {})).items()}
-    assert set(losses) == set(want_losses)
-    for k, v in losses.items():
-        np.testing.assert_allclose(float(v.detach()), float(want_losses[k][0]), **TOL)
-    (logits["read_comment"].mean() + sum(losses.values(), torch.zeros(()))).backward()
-    grads = {k: p.grad for k, p in model.named_parameters()}
-    seen = set()
-    for path, w in _flat(jgrads).items():  # each JAX gradient, carried to its torch name
-        (name, want), = convert.from_flax({"params": _unflat({path: w})}).items()
-        assert_grad_close(grads[name].numpy(), want.numpy())
-        seen.add(name)
-    assert seen == set(grads)
-    got_stats = _flat(convert.to_flax(model).get("batch_stats", {}))
-    want_stats = _flat(upd.get("batch_stats", {}))
-    assert set(got_stats) == set(want_stats)
-    for k, w in want_stats.items():
-        np.testing.assert_allclose(got_stats[k], w, **TOL)
+    check_matches_jax(*models(case, gen), hb)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_convert_round_trips_bit_exact(data, case):
     gen, hb = data
-    jmodel, model = _models(case, gen)
-    with torch.no_grad():
-        for p in model.parameters():  # zero-initialised leaves too
-            p.uniform_(-1.0, 1.0)
-        for name, buf in model.named_buffers():
-            if name.endswith(("running_mean", "running_var")):
-                buf.uniform_(0.5, 1.5)
-    sd = model.state_dict()
-    back = convert.from_flax(convert.to_flax(model))
-    assert set(back) == set(sd)
-    for k, v in sd.items():
-        assert back[k].dtype == v.dtype and torch.equal(back[k], v), k
-
-    variables = _variables(jmodel, hb, seed=2)
-    model.load_state_dict(convert.from_flax(variables))
-    again, want = _flat(convert.to_flax(model)), _flat(variables)
-    assert set(again) == set(want)
-    for path, leaf in want.items():
-        np.testing.assert_array_equal(again[path], leaf)
+    check_round_trips(*models(case, gen), hb)
 
 
 def test_full_width_shapes():
@@ -231,35 +112,11 @@ CLI_MODELS = {"AutoInt": dict(att_layers=2), "PNN": dict(output_dimension=16),
               "FiBiNET": dict(bilinear_interaction_type="each")}
 
 
-def _cli_args(name, model_dir, steps, *extra):
-    flags = [f"--{k}={','.join(map(str, v)) if isinstance(v, tuple) else v}"
-             for k, v in CLI_MODELS[name].items()]
-    return ["--model", name, "--synthetic", "--synthetic_vocab_scale", "0.005",
-            "--batch_size", "16", "--train_steps", str(steps), "--hidden_units", "16,8",
-            "--log_every", "2", "--eval_every_steps", "2", "--model_dir", str(model_dir),
-            "--predictions_csv", str(model_dir / "predictions.csv"), *flags, *extra]
-
-
 @pytest.mark.parametrize("name", sorted(CLI_MODELS))
 def test_cli_trains_exports_and_predicts(name, tmp_path):
-    final = tmain.main(_cli_args(name, tmp_path, 4, "--device", "cpu"))
-    assert 0.0 <= final["read_comment_auc"] <= 1.0
-    with open(tmp_path / "predictions.csv") as f:
-        rows = list(csv.reader(f))
-    assert rows[0] == ["read_comment_probabilities"]
-    assert len(rows) == 1 + tmain.EVAL_BATCHES * 16
-    cfg_cls, cls = get_model(name)
-    cfg = cfg_cls(hidden_units=(16, 8), **CLI_MODELS[name])
-    gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=42, vocab_scale=0.005))
-    pred = Predictor(cls(cfg, t_wechat_schema(gen.vocab_sizes())),
-                     Predictor.latest_best(str(tmp_path)), device="cpu")
-    out = pred.predict_batch(gen.batch(8, 1))["read_comment"]
-    assert out.shape == (8,) and np.isfinite(out).all()
+    check_cli_run(name, CLI_MODELS[name], tmp_path)
 
 
 @pytest.mark.parametrize("name", sorted(CLI_MODELS))
 def test_cli_raises_without_a_gpu(name, tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("this box has a GPU: cuda is a valid default here")
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tmain.main(_cli_args(name, tmp_path, 2))
+    check_cli_raises_without_a_gpu(name, CLI_MODELS[name], tmp_path)
