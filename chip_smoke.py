@@ -60,7 +60,23 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      step as phase 8; the DeepFM and DCNv2 train steps profiled as phase 8's;
      each golden recipe on cuda, gated on its band, or on MIN_EDGE with the
      band printed for GOLDEN_EDGE_ONLY, whose bands are under 2 sigma of
-     their own rerun spread.
+     their own rerun spread;
+ 13. main path 4: training from TFRecord files on cuda.  A WeChat split
+     (262,144 train rows, 62,000 eval rows, real table sizes) drawn from
+     SyntheticWeChat and written by the port's native writer with a
+     vocabulary/ directory of its ids; read back bitwise by the native
+     reader and, for 16,384 rows, by the Python parser, with rows/s of the
+     writer, both readers and batches() through prefetch; full-width BST
+     trains from the files through cli.main (periodic evals, one resume)
+     with exact BST-kernel launches, and predictions.csv (file order, id
+     tokens, labels) and its exact AUC are checked; full-width DIN streams
+     the files for 2 epochs through the chunk cache (its manifest checked)
+     with the DIN kernel's launches; DeepFM accumulates gradients over 2
+     micro-batches under --profile_dir (trace written); GenericDNN and
+     DeepFM train on a Douban-schema split; all with 0 launches where no
+     hand kernel runs.  Where the time goes: BST's train step fed from the
+     files against the synthetic stream (host wall, ex/s, the share spent
+     waiting for the next batch), beside the host CPU model.
 
 Each main path's kernel launch counts are set to 0 just before it and read
 just after: a kernel of the path that never launched fails the run.  The
@@ -156,6 +172,20 @@ MIN_EDGE = 0.57
 # models whose band is under 2 sigma of their own rerun spread, too narrow
 # for another init draw: gated on MIN_EDGE
 GOLDEN_EDGE_ONLY = ("xDeepFM", "FiBiNET", "AFM", "NFM", "GenericDNN", "FinalMLP")
+# phase 13: the WeChat split written to TFRecords; the reference's 3,322,313
+# train rows are cut to 64 batches of 4096 for the time limit, and 62,000
+# eval rows leave the last eval batch padded
+FILE_TRAIN_ROWS = 262_144
+FILE_EVAL_ROWS = 62_000
+FILE_PY_ROWS = 16_384  # rows the Python parser reads back
+FILE_SEED = 13
+# BST from the files: steps, eval and checkpoint period, then the resume
+FILE_BST_STEPS, FILE_BST_EVAL_EVERY, FILE_BST_RESUME = 24, 12, 32
+# DIN streams the first STREAM_LIMIT rows in chunks for STREAM_EPOCHS epochs
+STREAM_CHUNK, STREAM_LIMIT, STREAM_EPOCHS = 16_384, 65_536, 2
+ACCUM_MICRO_STEPS = 8  # DeepFM, --grad_accum_steps 2
+DOUBAN_TRAIN_ROWS, DOUBAN_EVAL_ROWS, DOUBAN_STEPS = 65_536, 8_000, 8
+FEED_WARM, FEED_STEPS = 5, 20  # BST steps per feed in the feed comparison
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -419,11 +449,14 @@ def zero_counts() -> None:
 BST_KERNELS = ("bst_attention_forward", "bst_attention_forward_save", "bst_attention_backward")
 
 
-def train_cli(model: str, model_dir: str, steps: int, extra=()) -> dict:
-    """One run of the port's training entry point on cuda, full width."""
+def train_cli(model: str, model_dir: str, steps: int, extra=(), synthetic: bool = True) -> dict:
+    """One run of the port's training entry point on cuda, full width, on
+    the synthetic stream or, with ``synthetic=False``, the data ``extra``
+    names."""
     from recalgorithm_tpu_torch.cli.main import main as train_main
 
-    argv = ["--model", model, "--synthetic", "--synthetic_vocab_scale", "1.0",
+    source = ["--synthetic", "--synthetic_vocab_scale", "1.0"] if synthetic else []
+    argv = ["--model", model, *source,
             "--batch_size", str(BST_BATCH), "--train_steps", str(steps),
             "--model_dir", model_dir, "--predictions_csv",
             os.path.join(model_dir, "predictions.csv"), "--eval_throttle_secs", "0",
@@ -927,6 +960,287 @@ def zoo_phase(work: str, gen) -> dict[str, str]:
     return best_dirs
 
 
+def token_tables(sizes: dict[str, int]) -> dict[str, np.ndarray]:
+    """Per vocabulary, the token of each id: b"" for id 0 (missing), then
+    ``<vocab>_<id>`` for 1..size, the lines of vocabulary/<vocab>.txt."""
+    return {v: np.array([b""] + [f"{v}_{i}".encode() for i in range(1, n + 1)], dtype=object)
+            for v, n in sizes.items()}
+
+
+def write_vocabulary(vocab_dir: str, tables: dict[str, np.ndarray]) -> None:
+    os.makedirs(vocab_dir, exist_ok=True)
+    for v, tab in tables.items():
+        with open(os.path.join(vocab_dir, f"{v}.txt"), "wb") as f:
+            f.write(b"\n".join(tab[1:]) + b"\n")
+
+
+def write_split(path: str, schema, gen, tables, n_rows: int, first_seed: int) -> tuple:
+    """``n_rows`` rows of ``gen`` (batches of BST_BATCH from ``first_seed``)
+    written to ``path`` by the port's native writer, one append a batch.
+    Returns the written arrays (keyed like a batch) and the seconds spent
+    marshalling tokens and in the writer."""
+    from recalgorithm_tpu_torch.runtime import loader
+
+    cols: dict[str, list] = defaultdict(list)
+    marshal_s = write_s = 0.0
+    for b in range(-(-n_rows // BST_BATCH)):
+        hb = gen.batch(BST_BATCH, first_seed + b)
+        hb = {k: v[: n_rows - b * BST_BATCH] for k, v in hb.items()}
+        for k, v in hb.items():
+            cols[k].append(v)
+        t0 = time.perf_counter()
+        cat_cols = [tables[f.vocab][hb[f.name]].tolist() for f in schema.categorical]
+        seq_cols = [[tables[f.vocab][row[:n]].tolist()
+                     for row, n in zip(hb[f.name], hb[f.name + "_len"])]
+                    for f in schema.sequence]
+        t1 = time.perf_counter()
+        loader.write_sequence_examples(
+            path, list(schema.dense_names), hb["dense"], list(schema.categorical_names),
+            cat_cols, list(schema.labels), hb["labels"], list(schema.sequence_names),
+            seq_cols, append=b > 0)
+        marshal_s += t1 - t0
+        write_s += time.perf_counter() - t1
+    return {k: np.concatenate(v) for k, v in cols.items()}, marshal_s, write_s
+
+
+def check_arrays_equal(name: str, data, want: dict) -> None:
+    """A DatasetArrays bitwise equal to the written columns."""
+    got = data.as_flat()
+    if got.keys() != want.keys():
+        raise AssertionError(f"{name}: columns {sorted(got)} vs {sorted(want)}")
+    for k, v in want.items():
+        if got[k].dtype != v.dtype or not np.array_equal(got[k], v):
+            raise AssertionError(f"{name}: column {k} differs from what was written")
+
+
+def data_cli(model: str, model_dir: str, files: tuple, steps: int, extra=()) -> dict:
+    """One run of the port's training entry point on cuda, full width, on
+    TFRecord files: ``files`` = (train, eval, vocabulary dir)."""
+    train, evals, vocab_dir = files
+    return train_cli(model, model_dir, steps, (
+        "--train_data", train, "--eval_data", evals, "--vocabulary_dir", vocab_dir,
+        *extra), synthetic=False)
+
+
+def check_predictions(name: str, path: str, ids: tuple, tables, want: dict,
+                      schema) -> tuple[np.ndarray, np.ndarray]:
+    """predictions.csv in file order: the id columns ``ids`` (sorted, as the
+    JAX CLI writes them) carry the written tokens, the label columns the
+    written labels.  Returns (labels, first task's probabilities)."""
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    header, rows = rows[0], rows[1:]
+    n = len(want["labels"])
+    if header[:2] != list(ids) or header[3:] != list(schema.labels) or len(rows) != n:
+        raise AssertionError(f"{name} predictions.csv: header {header}, {len(rows)} rows "
+                             f"(want {n})")
+    cols = list(zip(*rows))
+    for i, field in enumerate(ids):
+        if list(cols[i]) != [t.decode() for t in tables[schema.vocab_of(field)][want[field]]]:
+            raise AssertionError(f"{name} predictions.csv: {field} tokens are not the written ones")
+    got_labels = np.array(cols[3:], dtype=np.float32).T
+    if not np.array_equal(got_labels, want["labels"]):
+        raise AssertionError(f"{name} predictions.csv: labels are not the written ones")
+    probs = np.array(cols[2], dtype=np.float64)
+    if not ((probs >= 0) & (probs <= 1)).all():
+        raise AssertionError(f"{name} predictions.csv: probabilities outside [0, 1]")
+    return got_labels, probs
+
+
+def feed_profile(trainer, it, steps: int) -> dict:
+    """Host wall of ``steps`` train steps fed by ``it`` (after FEED_WARM
+    steps), ex/s, and the share of the wall spent in ``next(it)``."""
+    for _ in range(FEED_WARM):
+        trainer.train_step(next(it))
+    torch.cuda.synchronize()
+    wait = 0.0
+    t_start = time.perf_counter()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        hb = next(it)
+        wait += time.perf_counter() - t0
+        trainer.train_step(hb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    return {"step_ms": 1e3 * wall / steps, "ex_per_s": steps * BST_BATCH / wall,
+            "wait_share": wait / wall}
+
+
+def cpu_model() -> str:
+    """The host CPU's model name (lscpu, else /proc/cpuinfo) and count."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=60).stdout
+    with open("/proc/cpuinfo") as f:
+        out += f.read()
+    for line in out.splitlines():
+        key, _, value = line.partition(":")
+        if key.strip().lower() == "model name" and value.strip():
+            return f"{value.strip()} ({os.cpu_count()} CPUs)"
+    return f"not reported ({os.cpu_count()} CPUs)"
+
+
+def files_phase(work: str) -> dict[str, dict]:
+    """Phase 13: training from TFRecord files.  Returns the kernel launches
+    of its two paths (BST from the files, DIN streaming them)."""
+    from recalgorithm_tpu_torch.data import pipeline
+    from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
+    from recalgorithm_tpu_torch.features.schema import douban_schema, wechat_schema
+    from recalgorithm_tpu_torch.features.vocab import VocabularyStore
+    from recalgorithm_tpu_torch.models.bst import BST, BSTConfig
+    from recalgorithm_tpu_torch.runtime import loader
+    from recalgorithm_tpu_torch.train import optimizers
+    from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig
+    from recalgorithm_tpu_torch.train.metrics import exact_auc
+
+    root = os.path.join(work, "files")
+    os.makedirs(root)
+    # ---- the WeChat split, written and read back
+    gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=FILE_SEED, vocab_scale=1.0))
+    schema = wechat_schema(gen.vocab_sizes())
+    tables = token_tables(gen.vocab_sizes())
+    vocab_dir = os.path.join(root, "vocabulary")
+    write_vocabulary(vocab_dir, tables)
+    vocabs = VocabularyStore.from_dir(vocab_dir)
+    if wechat_schema(vocabs.sizes()) != schema:
+        raise AssertionError("the schema of the vocabulary directory is not the generator's")
+    train_path, eval_path = os.path.join(root, "train.tfrecord"), os.path.join(root, "test.tfrecord")
+    train_want, m_s, w_s = write_split(train_path, schema, gen, tables, FILE_TRAIN_ROWS, 0)
+    eval_want, em_s, ew_s = write_split(eval_path, schema, gen, tables, FILE_EVAL_ROWS, 100_000)
+    n_written = FILE_TRAIN_ROWS + FILE_EVAL_ROWS
+    n_mb = (os.path.getsize(train_path) + os.path.getsize(eval_path)) / 1e6
+    print(f"wrote {FILE_TRAIN_ROWS} + {FILE_EVAL_ROWS} rows ({n_mb:.1f} MB): native writer "
+          f"{n_written / (w_s + ew_s):,.0f} rows/s ({n_mb / (w_s + ew_s):.1f} MB/s), token "
+          f"marshalling {n_written / (m_s + em_s):,.0f} rows/s")
+    native_s = []
+    for _ in range(2):  # the second read finds the file in the page cache
+        t0 = time.perf_counter()
+        train_data = loader.read_dataset(train_path, schema, vocabs)
+        native_s.append(time.perf_counter() - t0)
+    check_arrays_equal("native reader, train split", train_data, train_want)
+    eval_data = loader.read_dataset(eval_path, schema, vocabs)
+    check_arrays_equal("native reader, eval split", eval_data, eval_want)
+    t0 = time.perf_counter()
+    py_data = pipeline.load_dataset(train_path, schema, vocabs, limit=FILE_PY_ROWS,
+                                    prefer_native=False)
+    py_s = time.perf_counter() - t0
+    check_arrays_equal("Python parser", py_data, {k: v[:FILE_PY_ROWS] for k, v in train_want.items()})
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in pipeline.prefetch(pipeline.batches(
+        train_data, BST_BATCH, shuffle=True, seed=0, drop_remainder=True)))
+    batches_s = time.perf_counter() - t0
+    train_mb = os.path.getsize(train_path) / 1e6
+    print(f"read back bitwise: native reader {FILE_TRAIN_ROWS / native_s[0]:,.0f} rows/s "
+          f"({train_mb / native_s[0]:.1f} MB/s), again {FILE_TRAIN_ROWS / native_s[1]:,.0f} "
+          f"rows/s ({train_mb / native_s[1]:.1f} MB/s), Python "
+          f"parser {FILE_PY_ROWS / py_s:,.0f} rows/s ({FILE_PY_ROWS} rows); batches() through "
+          f"prefetch {n_batches * BST_BATCH / batches_s:,.0f} rows/s ({n_batches} shuffled "
+          f"batches of {BST_BATCH})")
+    files = (train_path, eval_path, vocab_dir)
+    n_eval_batches = -(-FILE_EVAL_ROWS // BST_BATCH)
+
+    # ---- BST from the files, with periodic evals and a resume
+    bst_dir = os.path.join(work, "bst_files")
+    every = ["--eval_every_steps", str(FILE_BST_EVAL_EVERY),
+             "--save_checkpoints_steps", str(FILE_BST_EVAL_EVERY)]
+    zero_counts()
+    data_cli("BST", bst_dir, files, FILE_BST_STEPS, every)
+    final = data_cli("BST", bst_dir, files, FILE_BST_RESUME, every)
+    bst_counts = kernel_counts()
+    passes = (FILE_BST_STEPS // FILE_BST_EVAL_EVERY + 2
+              + FILE_BST_RESUME // FILE_BST_EVAL_EVERY - FILE_BST_STEPS // FILE_BST_EVAL_EVERY + 2)
+    want = {"din_attention": 0, "bst_attention_forward": passes * n_eval_batches,
+            "bst_attention_forward_save": FILE_BST_RESUME,
+            "bst_attention_backward": FILE_BST_RESUME}
+    print(f"BST from the files, kernel launches: {bst_counts}")
+    if bst_counts != want:
+        raise AssertionError(f"launches {bst_counts}, want {want} (one forward with P and one "
+                             "backward per train step, one forward per eval or predict batch)")
+    labels, probs = check_predictions(
+        "BST", os.path.join(bst_dir, "predictions.csv"), ("feedid", "userid"), tables,
+        eval_want, schema)
+    recomputed = exact_auc(labels[:, 0], probs)
+    print(f"BST final eval after the resume {final}; exact AUC from predictions.csv "
+          f"{recomputed}")
+    if not all(math.isfinite(x) for x in final.values()) or \
+            abs(final["read_comment_exact_auc"] - recomputed) > 1e-4:
+        raise AssertionError("BST from the files: non-finite metrics, or the printed exact AUC "
+                             "is not the one of predictions.csv")
+
+    # ---- DIN streams the files through the chunk cache
+    din_dir, cache_dir = os.path.join(work, "din_stream"), os.path.join(work, "stream_cache")
+    din_steps = STREAM_EPOCHS * STREAM_LIMIT // BST_BATCH
+    zero_counts()
+    din_final = data_cli("DIN", din_dir, files, din_steps, (
+        "--stream", "--stream_chunk_records", str(STREAM_CHUNK), "--limit_examples",
+        str(STREAM_LIMIT), "--stream_cache_dir", cache_dir, "--num_epochs", str(STREAM_EPOCHS)))
+    din_counts = kernel_counts()
+    print(f"DIN streaming the files, kernel launches: {din_counts}")
+    want = {"din_attention": din_steps + 2 * n_eval_batches, "bst_attention_forward": 0,
+            "bst_attention_forward_save": 0, "bst_attention_backward": 0}
+    if din_counts != want or not math.isfinite(din_final["loss"]):
+        raise AssertionError(f"DIN stream: launches {din_counts}, want {want}; {din_final}")
+    manifests = {}
+    for key in os.listdir(cache_dir):
+        with open(os.path.join(cache_dir, key, "MANIFEST.json")) as f:
+            m = json.load(f)
+        manifests[m["identity"]["path"]] = m["num_chunks"]
+    print(f"stream cache manifests (file: chunks): {manifests}")
+    if manifests.get(os.path.abspath(train_path)) != STREAM_LIMIT // STREAM_CHUNK:
+        raise AssertionError("the train split's chunk cache was not written after epoch 1")
+
+    # ---- DeepFM accumulates gradients, profiled
+    accum_dir = os.path.join(work, "deepfm_accum")
+    zero_counts()
+    data_cli("DeepFM", accum_dir, files, ACCUM_MICRO_STEPS, (
+        "--grad_accum_steps", "2", "--profile_dir", os.path.join(accum_dir, "profile")))
+    ck = torch.load(os.path.join(accum_dir, "checkpoints", f"ckpt_{ACCUM_MICRO_STEPS}.pt"),
+                    map_location="cpu", weights_only=True)
+    trace = os.path.join(accum_dir, "profile", "trace.json")
+    print(f"DeepFM, --grad_accum_steps 2: {ACCUM_MICRO_STEPS} micro-steps, optimizer count "
+          f"{ck['optimizer']['count']}, launches {kernel_counts()}; trace "
+          f"{os.path.getsize(trace) if os.path.exists(trace) else 0} bytes")
+    if any(kernel_counts().values()) or ck["optimizer"]["count"] != ACCUM_MICRO_STEPS // 2 \
+            or ck["mini_step"] != 0 or not os.path.getsize(trace):
+        raise AssertionError("DeepFM grad accumulation: launches, optimizer count or trace")
+
+    # ---- a Douban-schema split: GenericDNN and DeepFM
+    dgen = SyntheticWeChat(douban_schema(), SyntheticConfig(seed=FILE_SEED, vocab_scale=1.0))
+    dschema = douban_schema(dgen.vocab_sizes())
+    dtables = token_tables(dgen.vocab_sizes())
+    droot = os.path.join(root, "douban")
+    write_vocabulary(os.path.join(droot, "vocabulary"), dtables)
+    dtrain, deval = os.path.join(droot, "train.tfrecord"), os.path.join(droot, "test.tfrecord")
+    write_split(dtrain, dschema, dgen, dtables, DOUBAN_TRAIN_ROWS, 0)
+    deval_want, *_ = write_split(deval, dschema, dgen, dtables, DOUBAN_EVAL_ROWS, 100_000)
+    for name in ("GenericDNN", "DeepFM"):
+        model_dir = os.path.join(work, f"douban_{name}")
+        zero_counts()
+        dfinal = data_cli(name, model_dir, (dtrain, deval, os.path.join(droot, "vocabulary")),
+                          DOUBAN_STEPS, ("--dataset", "douban"))
+        if any(kernel_counts().values()) or not math.isfinite(dfinal["loss"]):
+            raise AssertionError(f"{name} on Douban: launches {kernel_counts()}, {dfinal}")
+        check_predictions(name, os.path.join(model_dir, "predictions.csv"),
+                          ("MOVIE_ID", "USER_MD5"), dtables, deval_want, dschema)
+        print(f"{name} on the Douban split: final eval {dfinal}")
+
+    # ---- where the time goes: BST's step fed from the files vs the stream
+    print(f"host CPU: {cpu_model()}")
+    model = BST(BSTConfig(), schema, torch.Generator().manual_seed(0))
+    trainer = Trainer(model, ("read_comment",), optimizers.build("adam", 0.005),
+                      TrainerConfig(model_dir=os.path.join(work, "feed")), device="cuda")
+    need = FEED_WARM + FEED_STEPS
+    for turn, feed in enumerate(("synthetic", "files", "files", "synthetic")):
+        if feed == "synthetic":  # as phase 7's cli.main feeds it
+            it = gen.batches(BST_BATCH, need, start_seed=1000 * turn)
+        else:  # as cli.main feeds the files
+            it = pipeline.prefetch(pipeline.batches(train_data, BST_BATCH, seed=turn,
+                                                    drop_remainder=True, max_steps=need))
+        r = feed_profile(trainer, iter(it), FEED_STEPS)
+        print(f"BST train step fed by {feed} (turn {turn}): host wall {r['step_ms']:.3f} ms, "
+              f"{r['ex_per_s']:,.0f} ex/s, waiting for the next batch "
+              f"{r['wait_share']:.4f} of the wall", flush=True)
+    return {"BST from files": bst_counts, "DIN stream": din_counts}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1018,10 +1332,18 @@ def main() -> int:
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False")
 
-    phase("2. build kernels (nvcc, sm_90a)")
+    phase("2. build kernels (nvcc, sm_90a) and the native TFRecord reader and writer (g++)")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from recalgorithm_tpu_torch.runtime import loader
+
     t0 = time.perf_counter()
-    libs = _build.build()
-    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(2) as pool:
+        host_libs = [pool.submit(loader.build, n) for n in ("tfrecord_reader", "tfrecord_writer")]
+        libs = _build.build()
+        host_libs = [f.result() for f in host_libs]
+    print(f"built {sorted(libs)} and {[p.name for p in host_libs]} in "
+          f"{time.perf_counter() - t0:.2f} s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "entry function" in line:  # names the kernel of the lines below it
@@ -1273,8 +1595,17 @@ def main() -> int:
         train_step_profile(name, zoo_dirs[name], card, kind, kernel=None)
     golden_phase(ZOO_MODELS, work)
 
+    phase("13. main path 4: training from TFRecord files on cuda: the native writer and "
+          "readers, BST from the files, DIN streaming them, DeepFM accumulating gradients, "
+          "GenericDNN and DeepFM on a Douban split; where the time goes")
+    file_counts = files_phase(work)
+
+    din_by_path = {"serving": serve_launches,
+                   "DIN stream": file_counts["DIN stream"]["din_attention"]}
+    din_entry.update(launches=sum(din_by_path.values()), launches_by_path=din_by_path)
     report = {"kernels": [din_entry, *bst_entries(
-        reports, {"BST": bst_counts_run, "AutoInt": autoint_counts})]}
+        reports, {"BST": bst_counts_run, "AutoInt": autoint_counts,
+                  "BST from files": file_counts["BST from files"]})]}
     print()
     print(card)
     print(json.dumps(report))

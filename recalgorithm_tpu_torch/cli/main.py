@@ -1,4 +1,4 @@
-"""CLI entrypoint: `python -m recalgorithm_tpu_torch.cli.main --model BST --synthetic [flags]`.
+"""CLI entrypoint: `python -m recalgorithm_tpu_torch.cli.main --model BST [flags]`.
 
 Counterpart of ``recalgorithm_tpu/cli/main.py``: the common training flags
 keep their names, and every field of the selected model's config dataclass
@@ -6,15 +6,24 @@ becomes a flag (comma-separated lists for tuple fields, so
 ``--hidden_units 512,256,128`` works as in the reference's sweep commands).
 ``--device`` (default ``cuda``; raises without a GPU) places the run.
 
-Run modes: ``--synthetic`` trains on the WeChat-shaped synthetic stream.  The
-TFRecord pipeline (``--train_data``/``--eval_data``/``--vocabulary_dir``) is
-not ported yet, nor are ``--stream``, ``--grad_accum_steps``, the mesh flags
-and the StableHLO export.
+Run modes:
+  * real data: ``--train_data``/``--eval_data`` point at reference-format
+    SequenceExample TFRecords (the output of data/etl.py or data/douban.py),
+    ``--vocabulary_dir`` at the ETL's vocabulary txts, ``--dataset`` picks
+    the schema; the split is loaded whole through the native reader, or
+    streamed in chunks with ``--stream`` (and its on-disk chunk cache);
+  * ``--synthetic``: the WeChat-shaped synthetic stream.
+
+Not ported yet: the mesh flags, ``--export_stablehlo``,
+``--export_quantized``, ``--serving_batch_size`` and ``--eval_recall_at``.
 
 After training: the final eval metrics are printed, and ``predictions.csv``
 holds per-task probabilities in the JAX CLI's column layout (reference
-wide_and_deep.py:360-375).  A resumed run (a checkpoint in ``--model_dir``)
-continues the synthetic stream from the restored step.
+wide_and_deep.py:360-375).  On real data the predictions are put back in
+file order and joined with the user and item id tokens and the labels, and
+the exact AUC and the per-user GAUC are printed beside the binned AUC.  A
+resumed run (a checkpoint in ``--model_dir``) continues its seeded batch
+stream from the restored step.
 """
 
 from __future__ import annotations
@@ -22,9 +31,11 @@ from __future__ import annotations
 import argparse
 import csv
 import dataclasses
+import itertools
 import os
 import sys
 
+import numpy as np
 import torch
 
 from recalgorithm_tpu_torch.cli.serve import add_dataclass_flags
@@ -38,54 +49,128 @@ def build_parser(model_name: str | None = None) -> argparse.ArgumentParser:
     from recalgorithm_tpu_torch.models import MODEL_REGISTRY
 
     parser = argparse.ArgumentParser(description="recalgorithm_tpu_torch trainer")
-    parser.add_argument("--model", default=model_name, required=model_name is None,
-                        choices=sorted(MODEL_REGISTRY))
+    parser.add_argument("--model", default=model_name, choices=sorted(MODEL_REGISTRY),
+                        help="required unless --list_models")
+    parser.add_argument("--list_models", action="store_true",
+                        help="print the registered models and exit")
     parser.add_argument("--model_dir", default="./model_dir")
+    parser.add_argument("--train_data", help="train split TFRecord (required "
+                                             "without --synthetic)")
+    parser.add_argument("--eval_data", help="eval split TFRecord (required "
+                                            "without --synthetic)")
+    parser.add_argument("--vocabulary_dir", help="the ETL's vocabulary txts "
+                                                 "(required without --synthetic)")
+    parser.add_argument("--dataset", default="wechat", choices=("wechat", "douban"),
+                        help="schema family: 'wechat' (the reference dataset) or "
+                             "'douban' (data/douban.py's artifacts)")
     parser.add_argument("--synthetic", action="store_true",
-                        help="train on WeChat-shaped synthetic data (the only "
-                             "data source ported so far)")
+                        help="train on WeChat-shaped synthetic data")
     parser.add_argument("--synthetic_vocab_scale", type=float, default=0.01)
+    parser.add_argument("--limit_examples", type=int, default=None,
+                        help="cap the examples read from each TFRecord split")
+    parser.add_argument("--stream", action="store_true",
+                        help="bounded-memory input for both splits: chunked native "
+                             "reads, and a shuffle-buffer pool for training")
+    parser.add_argument("--stream_chunk_records", type=int, default=65536,
+                        help="records per chunked read in --stream mode")
+    parser.add_argument("--stream_cache_dir", default=None,
+                        help="--stream: spill each chunk's translated arrays here "
+                             "on the first pass and serve later passes from disk")
     parser.add_argument("--eval_every_steps", type=int, default=0)
     parser.add_argument(
         "--eval_throttle_secs", type=float, default=600.0,
         help="evaluate when this many seconds passed since the last eval "
              "(reference EvalSpec(throttle_secs=600)); 0 disables")
     parser.add_argument("--log_every", type=int, default=100)
+    parser.add_argument("--grad_accum_steps", type=int, default=1,
+                        help="accumulate k micro-batch gradients before each "
+                             "optimizer step (effective batch = k x batch_size)")
     parser.add_argument("--predictions_csv", default="predictions.csv")
     parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of training here")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (default; raises without a "
                              "GPU) or cpu")
     return parser
 
 
+def list_models() -> None:
+    from recalgorithm_tpu_torch.models import MODEL_REGISTRY
+
+    for name in sorted(MODEL_REGISTRY):
+        doc = (sys.modules[MODEL_REGISTRY[name][1].__module__].__doc__ or "").strip()
+        print(f"{name:20s} {doc.splitlines()[0] if doc else ''}")
+
+
 def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
-    from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
-    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.features.schema import douban_schema, wechat_schema
     from recalgorithm_tpu_torch.models import MODEL_REGISTRY
     from recalgorithm_tpu_torch.serving.predictor import resolve_device
     from recalgorithm_tpu_torch.train import optimizers
     from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig, latest_checkpoint_step
+    from recalgorithm_tpu_torch.utils.summary import profile
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    pre_args, _ = build_parser(model_name).parse_known_args(argv)
+    pre_parser = build_parser(model_name)
+    pre_args, _ = pre_parser.parse_known_args(argv)
+    if pre_args.list_models:
+        list_models()
+        return {}
+    if pre_args.model is None:
+        pre_parser.error("--model is required")
     cfg_cls, model_cls = MODEL_REGISTRY[pre_args.model]
     parser = build_parser(model_name)
     add_dataclass_flags(parser, cfg_cls)
     args = parser.parse_args(argv)
+    missing = [f"--{k}" for k in ("train_data", "eval_data", "vocabulary_dir")
+               if getattr(args, k) is None]
+    if not args.synthetic and missing:
+        parser.error(f"{', '.join(missing)} required without --synthetic")
     cfg = cfg_cls(**{f.name: getattr(args, f.name) for f in dataclasses.fields(cfg_cls)})
     device = resolve_device(args.device)
-
-    if not args.synthetic:
-        raise NotImplementedError(
-            "the TFRecord pipeline is not ported yet: pass --synthetic")
-    gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(
-        seed=args.seed, vocab_scale=args.synthetic_vocab_scale))
-    schema = wechat_schema(gen.vocab_sizes())
+    schema_fn = {"wechat": wechat_schema, "douban": douban_schema}[args.dataset]
+    # a resumed run continues the batch stream from the restored step
     start = min(latest_checkpoint_step(args.model_dir), cfg.train_steps)
-    train_iter = gen.batches(cfg.batch_size, cfg.train_steps - start, start_seed=start)
-    eval_fn = lambda: gen.batches(cfg.batch_size, EVAL_BATCHES, start_seed=EVAL_START_SEED)
 
+    # ---- data
+    if args.synthetic:
+        from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
+
+        gen = SyntheticWeChat(schema_fn(), SyntheticConfig(
+            seed=args.seed, vocab_scale=args.synthetic_vocab_scale))
+        schema = schema_fn(gen.vocab_sizes())
+        train_iter = gen.batches(cfg.batch_size, cfg.train_steps - start, start_seed=start)
+        eval_fn = lambda: gen.batches(cfg.batch_size, EVAL_BATCHES, start_seed=EVAL_START_SEED)
+    else:
+        from recalgorithm_tpu_torch.data import pipeline
+        from recalgorithm_tpu_torch.features.vocab import VocabularyStore
+
+        vocabs = VocabularyStore.from_dir(args.vocabulary_dir)
+        schema = schema_fn(vocabs.sizes())
+        if args.stream:
+            source = pipeline.stream_batches(
+                args.train_data, schema, vocabs, cfg.batch_size, num_epochs=cfg.num_epochs,
+                shuffle_buffer_size=cfg.shuffle_buffer_size, seed=args.seed,
+                max_steps=cfg.train_steps, chunk_records=args.stream_chunk_records,
+                limit=args.limit_examples, cache_dir=args.stream_cache_dir)
+            eval_fn = lambda: pipeline.stream_eval_batches(
+                args.eval_data, schema, vocabs, cfg.batch_size,
+                chunk_records=args.stream_chunk_records, limit=args.limit_examples,
+                cache_dir=args.stream_cache_dir)
+        else:
+            train_arrays = pipeline.load_dataset(args.train_data, schema, vocabs,
+                                                 limit=args.limit_examples)
+            source = pipeline.batches(
+                train_arrays, cfg.batch_size, num_epochs=cfg.num_epochs,
+                shuffle=cfg.shuffle_buffer_size > 0, seed=args.seed,
+                drop_remainder=True, max_steps=cfg.train_steps)
+            eval_arrays = pipeline.load_dataset(args.eval_data, schema, vocabs,
+                                                limit=args.limit_examples)
+            eval_fn = lambda: pipeline.eval_batches(eval_arrays, cfg.batch_size)
+        train_iter = pipeline.prefetch(itertools.islice(source, start, None))
+
+    # ---- model + trainer
     task_names = tuple(cfg.task_names) or (schema.labels[0],)
     model = model_cls(cfg, schema, torch.Generator().manual_seed(args.seed))
     lr = optimizers.make_schedule(cfg.learning_rate, schedule=cfg.lr_schedule,
@@ -96,25 +181,80 @@ def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
         TrainerConfig(model_dir=args.model_dir, train_steps=cfg.train_steps,
                       log_every=args.log_every, eval_every_steps=args.eval_every_steps,
                       eval_throttle_secs=args.eval_throttle_secs,
-                      save_checkpoints_steps=cfg.save_checkpoints_steps, seed=args.seed),
+                      save_checkpoints_steps=cfg.save_checkpoints_steps, seed=args.seed,
+                      grad_accum_steps=args.grad_accum_steps),
         device=device,
     )
-    final_eval = trainer.train_and_evaluate(train_iter, eval_fn)
+    with profile(args.profile_dir or "", enabled=args.profile_dir is not None):
+        final_eval = trainer.train_and_evaluate(train_iter, eval_fn)
     for key in sorted(final_eval):
         print(f"{key}: {final_eval[key]}")
 
-    # ---- predictions.csv (reference wide_and_deep.py:370-375): the synthetic
-    # branch has no id columns and no labels, as in the JAX CLI
-    probs = trainer.predict(eval_fn())
+    # ---- predictions.csv (reference wide_and_deep.py:370-375)
+    eval_ids: dict[str, np.ndarray] = {}
+    eval_labels = None
+    if args.synthetic:  # no id columns and no labels, as in the JAX CLI
+        probs = trainer.predict(eval_fn())
+    else:
+        # the first two categorical fields are the user and item ids of
+        # every schema (userid/feedid, USER_MD5/MOVIE_ID); their tokens come
+        # from the inverse vocabulary, so predictions.csv joins with the raw
+        # test split (the reference joins with its test CSV)
+        id_cols = list(schema.categorical_names[:2])
+        probs, collected = trainer.predict(eval_fn(), collect=("labels", "_index", *id_cols))
+        order = np.argsort(collected["_index"], kind="stable")
+        probs = {t: v[order] for t, v in probs.items()}
+        collected = {k: v[order] for k, v in collected.items()}
+        idx = collected["_index"]
+        if len(idx) != len(np.unique(idx)):
+            raise RuntimeError("duplicate eval rows in predictions")
+        if args.limit_examples is None and not np.array_equal(idx, np.arange(len(idx))):
+            raise RuntimeError("eval row ids are not contiguous from 0: some example "
+                               "was never scored")
+        eval_labels = collected["labels"]
+        for k in id_cols:
+            toks = np.asarray([""] + vocabs[schema.vocab_of(k)].tokens(), dtype=object)
+            eval_ids[k] = toks[collected[k]]
+        _exact_metrics(final_eval, schema, task_names, probs, eval_labels,
+                       collected[id_cols[0]])
+
     if os.path.dirname(args.predictions_csv):
         os.makedirs(os.path.dirname(args.predictions_csv), exist_ok=True)
     with open(args.predictions_csv, "w", newline="") as f:
         writer = csv.writer(f)
-        writer.writerow([f"{t}_probabilities" for t in task_names])
-        for row in zip(*(probs[t] for t in task_names)):
-            writer.writerow([f"{p:.6f}" for p in row])
+        id_cols = sorted(eval_ids)
+        header = id_cols + [f"{t}_probabilities" for t in task_names]
+        if eval_labels is not None:
+            header += list(schema.labels)
+        writer.writerow(header)
+        n = len(probs[task_names[0]])
+        for i in range(n):
+            row = [str(eval_ids[c][i]) for c in id_cols]
+            row += [f"{probs[t][i]:.6f}" for t in task_names]
+            if eval_labels is not None:
+                row += [f"{v:g}" for v in eval_labels[i]]
+            writer.writerow(row)
     print(f"wrote {args.predictions_csv}")
     return final_eval
+
+
+def _exact_metrics(final_eval: dict, schema, task_names, probs, labels, users) -> None:
+    """The unbinned rank AUC (the ground truth the 200-bin streaming AUC
+    approximates) and the per-user GAUC of each task with a label column,
+    printed and added to ``final_eval``.  Id 0 (OOV users, all translated
+    to one id) is left out of GAUC, where it would pool unrelated users."""
+    from recalgorithm_tpu_torch.train.metrics import exact_auc, grouped_auc
+
+    label_idx = {name: i for i, name in enumerate(schema.labels)}
+    known = users > 0
+    for t in task_names:
+        if t not in label_idx:
+            continue
+        y = labels[:, label_idx[t]]
+        final_eval[f"{t}_exact_auc"] = exact_auc(y, probs[t])
+        final_eval[f"{t}_gauc"] = grouped_auc(y[known], probs[t][known], users[known])
+        print(f"{t}_exact_auc: {final_eval[f'{t}_exact_auc']}")
+        print(f"{t}_gauc: {final_eval[f'{t}_gauc']}")
 
 
 if __name__ == "__main__":

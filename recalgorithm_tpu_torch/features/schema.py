@@ -241,8 +241,8 @@ def wechat_schema(vocab_sizes: Mapping[str, int] | None = None) -> Schema:
 # its vocabulary/feature steps are commented out and it was never run to
 # completion.  The column list, separators, min_count thresholds, 360-day
 # window, last-20 history and rating>=4 label below all come from that
-# file's code and comments (DataGenerator.py:30-172).  The JAX package's
-# data/douban.py completes that pipeline; this package has the schema only).
+# file's code and comments (DataGenerator.py:30-172); data/douban.py
+# completes that pipeline).
 # ---------------------------------------------------------------------------
 
 DOUBAN_DENSE_NAMES: tuple[str, ...] = (

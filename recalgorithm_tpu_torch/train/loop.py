@@ -15,16 +15,24 @@ Responsibilities (the reference's Estimator usage, wide_and_deep.py:331-376):
     latest; a best-exporter keyed on the first task's eval AUC that keeps
     the BEST_EXPORTS_KEPT best exports (BestExporter(exports_to_keep=5) parity);
   * SIGTERM: finish the step in flight, checkpoint, return without the final
-    eval.
+    eval;
+  * gradient accumulation (``grad_accum_steps`` = k, ``optax.MultiSteps``
+    semantics): the optimizer is applied every k micro-batches with the
+    running mean of their gradients, so its count (Adam's bias correction,
+    the schedule) advances once per application; BatchNorm statistics and
+    the metrics update on every micro-batch, and ``step`` counts
+    micro-batches.  The accumulator is checkpointed with the rest.
 
 Not ported yet: the mesh (multi-device), the compact gradient scatter (its
 torch counterpart, the gather's backward, is exact at every density), the
-TPU compiler options, ``rng_impl`` and ``grad_accum_steps``.
+TPU compiler options and ``rng_impl``.
 
 Data contract: iterables of host batches (dict[str, np.ndarray]) with fixed
 shapes; an optional ``"_weights"`` (B,) 0/1 mask marks real rows in padded
-eval tails.  The model is built (and initialised) by the caller; the trainer
-moves it to its device.
+eval tails.  Only the model's inputs (the schema's batch columns) and
+``_weights`` go to the device: metadata such as ``_index`` stays on the
+host.  The model is built (and initialised) by the caller; the trainer moves
+it to its device.
 """
 
 from __future__ import annotations
@@ -82,6 +90,9 @@ class TrainerConfig:
     eval_throttle_secs: float = 0.0
     save_checkpoints_steps: int = 1000
     seed: int = 42  # seeds the dropout generator (seed + 1, as the JAX loop)
+    # apply the optimizer every k micro-batches with the mean of their
+    # gradients (optax.MultiSteps); train_steps counts micro-batches
+    grad_accum_steps: int = 1
 
 
 class Trainer:
@@ -101,6 +112,14 @@ class Trainer:
                 m.generator = self.generator
         self.step = 0
         self.metrics = self._fresh_metrics()
+        if config.grad_accum_steps < 1:
+            raise ValueError(f"grad_accum_steps must be >= 1, got {config.grad_accum_steps}")
+        # MultiSteps state: micro-batches accumulated so far in this window
+        # and the running mean of their gradients
+        self.mini_step = 0
+        self.accum = ([torch.zeros_like(p) for p in self.model.parameters()]
+                      if config.grad_accum_steps > 1 else [])
+        self._inputs = frozenset(self.model.schema.batch_spec(1)) | {"_weights"}
 
     def _fresh_metrics(self) -> MetricsState:
         return MetricsState(M.ScalarMeanState.init(self.device),
@@ -109,7 +128,8 @@ class Trainer:
     # -- steps ---------------------------------------------------------------
 
     def _put_batch(self, batch: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
+        return {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                for k, v in batch.items() if k in self._inputs}
 
     def _task_label(self, batch, task: str) -> torch.Tensor:
         label_idx = {name: i for i, name in enumerate(self.model.schema.labels)}
@@ -164,7 +184,22 @@ class Trainer:
         loss, logits = self._loss_and_logits(batch)
         self.optimizer.zero_grad()
         loss.backward()
-        self.optimizer.step()
+        k = self.config.grad_accum_steps
+        if k == 1:
+            self.optimizer.step()
+        else:
+            n = self.mini_step
+            with torch.no_grad():
+                for p, acc in zip(self.model.parameters(), self.accum):
+                    g = p.grad if p.grad is not None else torch.zeros_like(acc)
+                    acc.add_((g - acc) / (n + 1))  # optax's running mean
+            if n == k - 1:
+                for p, acc in zip(self.model.parameters(), self.accum):
+                    p.grad = acc.clone()
+                    acc.zero_()
+                self.optimizer.step()
+                self.optimizer.zero_grad()
+            self.mini_step = (n + 1) % k
         self.step += 1
         loss = loss.detach()
         self.metrics = self._update_metrics(
@@ -196,10 +231,17 @@ class Trainer:
                 state = self._update_metrics(state, batch, logits, loss)
         return self._metrics_snapshot(state)
 
-    def predict(self, batches: Iterable[Mapping[str, np.ndarray]]) -> dict[str, np.ndarray]:
+    def predict(self, batches: Iterable[Mapping[str, np.ndarray]], collect: tuple[str, ...] = ()
+                ) -> dict[str, np.ndarray] | tuple[dict[str, np.ndarray], dict[str, np.ndarray]]:
         """Probabilities per task, concatenated over batches; rows with
-        ``_weights == 0`` (padded tails) dropped."""
+        ``_weights == 0`` (padded tails) dropped.
+
+        ``collect`` names extra batch columns (labels, ``_index``, id
+        columns) returned row-aligned with the probabilities, read from the
+        host batch; with a non-empty ``collect`` the return is
+        ``(probs, collected)``."""
         outs: dict[str, list[np.ndarray]] = {t: [] for t in self.task_names}
+        extras: dict[str, list[np.ndarray]] = {k: [] for k in collect}
         self.model.eval()
         with torch.no_grad():
             for hb in batches:
@@ -207,8 +249,13 @@ class Trainer:
                 keep = np.asarray(hb["_weights"]) > 0 if "_weights" in hb else slice(None)
                 for t in self.task_names:
                     outs[t].append(torch.sigmoid(logits[t]).cpu().numpy()[keep])
-        return {t: np.concatenate(v) if v else np.empty((0,), np.float32)
-                for t, v in outs.items()}
+                for k in collect:
+                    extras[k].append(np.asarray(hb[k])[keep])
+        probs = {t: np.concatenate(v) if v else np.empty((0,), np.float32)
+                 for t, v in outs.items()}
+        if not collect:
+            return probs
+        return probs, {k: np.concatenate(v) if v else np.empty((0,)) for k, v in extras.items()}
 
     def train_and_evaluate(
         self,
@@ -316,7 +363,9 @@ class _Checkpointer:
         torch.save({"model": trainer.model.state_dict(),
                     "optimizer": trainer.optimizer.state_dict(),
                     "step": trainer.step,
-                    "generator": trainer.generator.get_state()}, tmp)
+                    "generator": trainer.generator.get_state(),
+                    "mini_step": trainer.mini_step,
+                    "accum": trainer.accum}, tmp)
         os.replace(tmp, path)  # atomic: a reader never sees half a checkpoint
         for old in self.steps(self.dir)[:-CHECKPOINTS_KEPT]:
             os.remove(self._path(old))
@@ -330,6 +379,13 @@ class _Checkpointer:
         trainer.optimizer.load_state_dict(ck["optimizer"])
         trainer.step = int(ck["step"])
         trainer.generator.set_state(ck["generator"])
+        accum = ck.get("accum", [])
+        if len(accum) != len(trainer.accum):
+            raise ValueError(f"checkpoint {steps[-1]} was written with another "
+                             "grad_accum_steps than this run's")
+        trainer.mini_step = int(ck.get("mini_step", 0))
+        for acc, saved in zip(trainer.accum, accum):
+            acc.copy_(saved)
 
     def maybe_export_best(self, trainer: Trainer, auc: float) -> None:
         """Keep the BEST_EXPORTS_KEPT highest-AUC exports (BestExporter parity)."""

@@ -1,13 +1,15 @@
-"""Scalar summaries as JSONL.
+"""Scalar summaries as JSONL, and a profiler scope.
 
-Counterpart of ``recalgorithm_tpu/utils/summary.py`` (the JSONL sink only;
-its TensorBoard mirror, histograms and ``jax.profiler`` scope are not
-ported): an append-only ``scalars.jsonl`` of ``{"step", "time", tag: value}``
-records that any tool can read.
+Counterpart of ``recalgorithm_tpu/utils/summary.py`` (its TensorBoard
+mirror and histograms are not ported): an append-only ``scalars.jsonl`` of
+``{"step", "time", tag: value}`` records that any tool can read, and
+:func:`profile`, the ``torch.profiler`` counterpart of its ``jax.profiler``
+scope.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -28,3 +30,23 @@ class SummaryWriter:
 
     def close(self) -> None:
         self._f.close()
+
+
+@contextlib.contextmanager
+def profile(log_dir: str, enabled: bool = True):
+    """``torch.profiler`` scope over the host and, where there is one, the
+    card; writes ``<log_dir>/trace.json`` (Chrome trace format, opened by
+    chrome://tracing or Perfetto) when the scope ends."""
+    if not enabled:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of recalgorithm_tpu_torch,
-and chip_smoke.py, loads no jax, no flax and nothing of recalgorithm_tpu."""
+and chip_smoke.py, loads no jax, no flax, nothing of recalgorithm_tpu, and
+no pandas (which only the two ETLs import, inside ``run``)."""
 
 import os
 import subprocess
@@ -17,7 +18,7 @@ for name in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "recalgorithm_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "recalgorithm_tpu", "pandas"))
 print(len(names), bad)
 """
 

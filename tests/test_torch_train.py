@@ -407,8 +407,29 @@ def test_cli_trains_resumes_and_exports(tmp_path):
 
 
 def test_cli_needs_synthetic(tmp_path):
-    with pytest.raises(NotImplementedError, match="TFRecord pipeline is not ported yet"):
-        tmain.main(["--model", "BST", "--model_dir", str(tmp_path), "--device", "cpu"])
+    """Without --synthetic the run trains on TFRecords: a missing
+    --vocabulary_dir raises before anything is read."""
+    with pytest.raises(FileNotFoundError):
+        tmain.main(["--model", "BST", "--model_dir", str(tmp_path), "--device", "cpu",
+                    "--train_data", str(tmp_path / "train.tfrecord"),
+                    "--eval_data", str(tmp_path / "test.tfrecord"),
+                    "--vocabulary_dir", str(tmp_path / "missing")])
+
+
+@pytest.mark.parametrize("left_out", ["--train_data", "--eval_data", "--vocabulary_dir"])
+def test_cli_real_data_needs_paths(tmp_path, capsys, left_out):
+    """Without --synthetic each data path must be given: the CLI has no
+    default that points outside its working directory."""
+    paths = {"--train_data": "train.tfrecord", "--eval_data": "test.tfrecord",
+             "--vocabulary_dir": "vocabulary"}
+    argv = ["--model", "BST", "--model_dir", str(tmp_path), "--device", "cpu"]
+    for flag, name in paths.items():
+        if flag != left_out:
+            argv += [flag, str(tmp_path / name)]
+    with pytest.raises(SystemExit) as exc:
+        tmain.main(argv)
+    assert exc.value.code == 2
+    assert f"{left_out} required without --synthetic" in capsys.readouterr().err
 
 
 def test_cli_raises_without_a_gpu(tmp_path):
