@@ -34,7 +34,8 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      eval batches the run took;
   8. one BST train step on cuda held against the same step on the CPU (the
      loss against f32; every gradient against f64, allowing the f32 step's
-     own rounding; on the batch rows with no relu input at a kink, where
+     own rounding, and for an embedding table rtol of the f64 sum of its
+     terms' magnitudes; on the batch rows with no relu input at a kink, where
      rounding could change the branch: BST has no relu, and the rows kept
      are printed); the BST kernels at that step's own inputs; the
      train step's time (CUDA events, host wall), ex/s and device idle share
@@ -53,11 +54,13 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      golden recipe, gated on its band;
  12. the rest of the zoo at full width (config defaults, real tables,
      B=4096): PNN, xDeepFM, FiBiNET, DeepCrossing, DCN, DCNv2, GDCN,
-     GenericDNN, DeepFM, FFM, FwFM, AFM, NFM, DLRM, FinalMLP and MaskNet
+     GenericDNN, DeepFM, FFM, FwFM, AFM, NFM, DLRM, FinalMLP, MaskNet and
+     WideAndDeep (its 100,000-bucket hashed cross, FTRL on the wide part)
      train 8 steps each through cli.main on cuda with no hand kernel
      launched; each best export predicted by Predictor on cuda against the
-     CPU; one DeepFM train step (no tower BN, dropout 0) against the f64 CPU
-     step as phase 8; the DeepFM and DCNv2 train steps profiled as phase 8's;
+     CPU; one DeepFM and one W&D train step (no tower BN, dropout 0) against
+     the f64 CPU step as phase 8; the DeepFM and DCNv2 train steps profiled
+     as phase 8's;
      each golden recipe on cuda, gated on its band, or on MIN_EDGE with the
      band printed for GOLDEN_EDGE_ONLY, whose bands are under 2 sigma of
      their own rerun spread;
@@ -67,16 +70,30 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      vocabulary/ directory of its ids; read back bitwise by the native
      reader and, for 16,384 rows, by the Python parser, with rows/s of the
      writer, both readers and batches() through prefetch; full-width BST
-     trains from the files through cli.main (periodic evals, one resume)
-     with exact BST-kernel launches, and predictions.csv (file order, id
-     tokens, labels) and its exact AUC are checked; full-width DIN streams
+     trains from the files through cli.main (periodic evals, one resume
+     that also exports its serving artifact) with exact BST-kernel
+     launches, and predictions.csv (file order, id tokens, labels) and its
+     exact AUC are checked; full-width DIN streams
      the files for 2 epochs through the chunk cache (its manifest checked)
      with the DIN kernel's launches; DeepFM accumulates gradients over 2
      micro-batches under --profile_dir (trace written); GenericDNN and
      DeepFM train on a Douban-schema split; all with 0 launches where no
      hand kernel runs.  Where the time goes: BST's train step fed from the
      files against the synthetic stream (host wall, ex/s, the share spent
-     waiting for the next batch), beside the host CPU model.
+     waiting for the next batch), beside the host CPU model;
+ 14. main path 5: serving artifacts (serving/export.py, torch.export
+     programs) on cuda.  Phase 4's DIN and phase 7's BST exported on cuda,
+     f32 and with int8 tables, at B=256: each program holds its kernel's op
+     node; HLOPredictor on cuda launches that kernel exactly once a batch
+     and equals the live Predictor on cuda (quantized alike) within TOL;
+     int8 and f32 within 0.02.  Phase 12's W&D exported f32 and int8: the
+     int8 artifact under 0.45x the f32 bytes.  cli/serve.py's build_server
+     with --stablehlo din=... --stablehlo bst=... over HTTP (each route
+     against its artifact, a bare /predict refused as ambiguous).
+     cli/score.py with phase 13's BST artifact on the 62,000-row eval
+     split: predictions.csv's rows, tokens and labels, its probabilities to
+     the CSV's 6 decimals.  The DIN artifact's batch wall against the live
+     Predictor's at B = 8 and 256.
 
 Each main path's kernel launch counts are set to 0 just before it and read
 just after: a kernel of the path that never launched fails the run.  The
@@ -89,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import contextlib
 import csv
 import dataclasses
 import json
@@ -100,6 +118,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from collections import defaultdict
 
@@ -150,7 +169,7 @@ STEP_ITERS = 20  # train steps timed / profiled in phases 8 and 11
 # phase 12: full-width training steps of each model that runs no hand kernel
 ZOO_MODELS = ("PNN", "xDeepFM", "FiBiNET", "DeepCrossing", "DCN", "DCNv2", "GDCN",
               "GenericDNN", "DeepFM", "FFM", "FwFM", "AFM", "NFM", "DLRM", "FinalMLP",
-              "MaskNet")
+              "MaskNet", "WideAndDeep")
 ZOO_PROFILED = ("DeepFM", "DCNv2")  # their train steps profiled, as phase 8's
 ZOO_TRAIN_STEPS = 8
 ZOO_PREDICT_BATCH = 1024
@@ -167,11 +186,16 @@ GOLDEN_PER_MODEL = {"AFM": {"steps": 200, "lr": 0.02}, "DeepFM": {"steps": 800, 
                     "FiBiNET": {"steps": 200, "lr": 0.02}, "BST": {"steps": 300, "lr": 0.01},
                     "DCN": {"steps": 150}}
 GOLDEN_OVERRIDES = {"hidden_units": (64, 32), "output_dimension": 16,
-                    "cin_layer_feature_maps": (8, 8), "attention_factor": 16}
+                    "cin_layer_feature_maps": (8, 8), "attention_factor": 16,
+                    "cross_hash_buckets": 5000}
+# the golden recipe's FTRL rate for the wide part of a model with a
+# wide-parameter split (W&D), beside the deep part's Adam at the recipe's rate
+GOLDEN_WIDE_LR = 0.01
 MIN_EDGE = 0.57
 # models whose band is under 2 sigma of their own rerun spread, too narrow
 # for another init draw: gated on MIN_EDGE
-GOLDEN_EDGE_ONLY = ("xDeepFM", "FiBiNET", "AFM", "NFM", "GenericDNN", "FinalMLP")
+GOLDEN_EDGE_ONLY = ("xDeepFM", "FiBiNET", "AFM", "NFM", "GenericDNN", "FinalMLP",
+                    "WideAndDeep")
 # phase 13: the WeChat split written to TFRecords; the reference's 3,322,313
 # train rows are cut to 64 batches of 4096 for the time limit, and 62,000
 # eval rows leave the last eval batch padded
@@ -186,6 +210,16 @@ STREAM_CHUNK, STREAM_LIMIT, STREAM_EPOCHS = 16_384, 65_536, 2
 ACCUM_MICRO_STEPS = 8  # DeepFM, --grad_accum_steps 2
 DOUBAN_TRAIN_ROWS, DOUBAN_EVAL_ROWS, DOUBAN_STEPS = 65_536, 8_000, 8
 FEED_WARM, FEED_STEPS = 5, 20  # BST steps per feed in the feed comparison
+# phase 14: serving artifacts (serving/export.py) at this baked batch, each
+# predicting ARTIFACT_BATCHES batches; int8 against f32 within INT8_ATOL and
+# W&D's int8 artifact under INT8_BYTES of its f32 one (the JAX package's
+# bounds, tests/test_quantize.py); the artifact against the live Predictor
+# timed at TIMED_BATCHES
+ARTIFACT_BATCH, ARTIFACT_BATCHES = 256, 3
+INT8_ATOL, INT8_BYTES = 0.02, 0.45
+TIMED_BATCHES = (8, 256)
+KERNEL_OPS = {"DIN": "recalgorithm_torch.din_attention.default",
+              "BST": "recalgorithm_torch.bst_mha_forward.default"}
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -538,7 +572,12 @@ def golden_auc(name: str, device: str, model_dir: str, init_seed: int = GOLDEN_S
     schema = wechat_schema(gen.vocab_sizes())
     model = model_cls(cfg, schema, torch.Generator().manual_seed(init_seed))
     tasks = tuple(cfg.task_names) or (schema.labels[0],)  # () is the first label
-    trainer = Trainer(model, tasks, optimizers.build(cfg.optimizer, lr),
+    if hasattr(model_cls, "wide_param_predicate"):
+        opt = optimizers.dual_wide_deep(GOLDEN_WIDE_LR, "adam", lr, model_cls.wide_param_predicate,
+                                        [n for n, _ in model.named_parameters()])
+    else:
+        opt = optimizers.build(cfg.optimizer, lr)
+    trainer = Trainer(model, tasks, opt,
                       TrainerConfig(model_dir=model_dir, train_steps=steps, log_every=1000,
                                     save_checkpoints_steps=0, seed=init_seed), device=device)
     ev = trainer.train_and_evaluate(
@@ -587,7 +626,8 @@ def zero_gradient_params(cfg) -> set[str]:
             | {f"transformer_{cfg.num_transformer_block - 1}.ln2.bias"})
 
 
-def step_gradient_ratios(gpu: dict, cpu: dict, exact: dict, zero: set[str]) -> dict[str, float]:
+def step_gradient_ratios(gpu: dict, cpu: dict, exact: dict, zero: set[str],
+                         abs_sums: dict) -> dict[str, float]:
     """Phase 8's gate on a train step's gradients: for each tensor, the largest
     share of its allowance that an element of the cuda gradient uses (it
     passes at <= 1).  The cuda gradient is held to the step's f64 CPU gradient
@@ -595,16 +635,55 @@ def step_gradient_ratios(gpu: dict, cpu: dict, exact: dict, zero: set[str]) -> d
     largest gradient for the ``zero`` tensors, whose true gradient is 0), plus
     STEP_NOISE x the f32 CPU step's (``cpu``) own largest error in that tensor.
     The last term is the rounding of f32 on this step's weights: an element
-    whose sum cancels is off by it on any f32 device, in any summation order."""
+    whose sum cancels is off by it on any f32 device, in any summation order.
+    For an embedding table's gradient (a key of ``abs_sums``) the rtol term is
+    rtol x the f64 sum of |term| over the positions that read each row
+    (``lookup_abs_sums``), not rtol x |sum|: each term is right within rtol,
+    so the sum is right within rtol x sum|terms|, and a row read by many
+    positions (the feedid sequence: 4096 x 51 positions) cancels."""
     step_scale = max(float(g.abs().max()) for g in exact.values())
     ratios = {}
     for name, want in exact.items():
         scale = step_scale if name in zero else float(want.abs().max())
         noise = float((cpu[name] - want).abs().max())
-        allowed = (GRAD_TOL["rtol"] * want.abs() + GRAD_TOL["atol"] * scale
+        rel = abs_sums[name] if name in abs_sums else want.abs()
+        allowed = (GRAD_TOL["rtol"] * rel + GRAD_TOL["atol"] * scale
                    + STEP_NOISE * noise).clamp(min=torch.finfo(torch.float64).tiny)
         ratios[name] = float(((gpu[name] - want).abs() / allowed).max())
     return ratios
+
+
+@contextlib.contextmanager
+def lookup_abs_sums(model):
+    """While open, each embedding-table lookup of ``model`` whose output needs
+    a gradient gets a hook on that output; the dict yielded maps each table's
+    parameter name to the sum, over the positions that read a row, of
+    |dL/d(the row at that position)| (index_add over the lookup's ids): the
+    S_abs of step_gradient_ratios, filled by the backward."""
+    from recalgorithm_tpu_torch.embed.tables import EmbeddingCollection
+
+    names = {id(m): n for n, m in model.named_modules() if isinstance(m, EmbeddingCollection)}
+    sums: dict[str, torch.Tensor] = {}
+    plain = EmbeddingCollection._clip_gather
+
+    def hooked(self, table, ids):
+        out = plain(self, table, ids)
+        if out.requires_grad:
+            tab = self.tables[table]
+            acc = sums.setdefault(f"{names[id(self)]}.tables.{table}", torch.zeros_like(tab))
+            rows = ids.long().clamp(0, tab.shape[0] - 1).reshape(-1)
+
+            def add(grad, acc=acc, rows=rows, dim=tab.shape[1]):
+                acc.index_add_(0, rows, grad.abs().reshape(-1, dim))  # returns None: grad kept
+
+            out.register_hook(add)
+        return out
+
+    EmbeddingCollection._clip_gather = hooked
+    try:
+        yield sums
+    finally:
+        EmbeddingCollection._clip_gather = plain
 
 
 def make_trainer(name: str, schema, weights: dict, cfg, device: str, model_dir: str):
@@ -697,19 +776,20 @@ def step_vs_cpu(name: str, best_dir: str, zero: set[str], **overrides) -> None:
         tr = make_trainer(name, schema, weights, cfg, device, best_dir)
         batch = put(tr, hb, f64)
         tr.model.train()
-        loss, _ = tr._loss_and_logits(batch)
-        loss.backward()
+        with lookup_abs_sums(tr.model) as sums:
+            loss, _ = tr._loss_and_logits(batch)
+            loss.backward()
         return float(loss.detach()), {n: p.grad.double().cpu()
-                                      for n, p in tr.model.named_parameters()}
+                                      for n, p in tr.model.named_parameters()}, sums
 
-    gpu_loss, gpu_grads = one_step("cuda")
-    cpu_loss, cpu_grads = one_step("cpu")
-    _, exact = one_step("cpu", f64=True)
+    gpu_loss, gpu_grads, _ = one_step("cuda")
+    cpu_loss, cpu_grads, _ = one_step("cpu")
+    _, exact, abs_sums = one_step("cpu", f64=True)
 
     def max_err(grads):
         return max(float((grads[n] - exact[n]).abs().max()) for n in exact)
 
-    ratios = step_gradient_ratios(gpu_grads, cpu_grads, exact, zero)
+    ratios = step_gradient_ratios(gpu_grads, cpu_grads, exact, zero, abs_sums)
     worst = max(ratios, key=ratios.get)
     print(f"{name} train step, {int(keep.sum())} of B={BST_BATCH} rows away from a relu kink "
           f"{overrides or ''}: loss cuda {gpu_loss} cpu "
@@ -1078,9 +1158,12 @@ def cpu_model() -> str:
     return f"not reported ({os.cpu_count()} CPUs)"
 
 
-def files_phase(work: str) -> dict[str, dict]:
+def files_phase(work: str) -> tuple[dict[str, dict], dict[str, str]]:
     """Phase 13: training from TFRecord files.  Returns the kernel launches
-    of its two paths (BST from the files, DIN streaming them)."""
+    of its two paths (BST from the files, DIN streaming them), and what
+    phase 14 scores: the serving artifact of BST's resumed run (exported by
+    cli.main at B=BST_BATCH), its predictions.csv, the eval split and its
+    vocabulary."""
     from recalgorithm_tpu_torch.data import pipeline
     from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
     from recalgorithm_tpu_torch.features.schema import douban_schema, wechat_schema
@@ -1143,7 +1226,9 @@ def files_phase(work: str) -> dict[str, dict]:
              "--save_checkpoints_steps", str(FILE_BST_EVAL_EVERY)]
     zero_counts()
     data_cli("BST", bst_dir, files, FILE_BST_STEPS, every)
-    final = data_cli("BST", bst_dir, files, FILE_BST_RESUME, every)
+    artifact = os.path.join(bst_dir, "bst.pt2")
+    final = data_cli("BST", bst_dir, files, FILE_BST_RESUME,
+                     [*every, "--export_stablehlo", artifact])
     bst_counts = kernel_counts()
     passes = (FILE_BST_STEPS // FILE_BST_EVAL_EVERY + 2
               + FILE_BST_RESUME // FILE_BST_EVAL_EVERY - FILE_BST_STEPS // FILE_BST_EVAL_EVERY + 2)
@@ -1238,7 +1323,233 @@ def files_phase(work: str) -> dict[str, dict]:
         print(f"BST train step fed by {feed} (turn {turn}): host wall {r['step_ms']:.3f} ms, "
               f"{r['ex_per_s']:,.0f} ex/s, waiting for the next batch "
               f"{r['wait_share']:.4f} of the wall", flush=True)
-    return {"BST from files": bst_counts, "DIN stream": din_counts}
+    return ({"BST from files": bst_counts, "DIN stream": din_counts},
+            {"artifact": artifact, "predictions": os.path.join(bst_dir, "predictions.csv"),
+             "eval": eval_path, "vocabulary": vocab_dir})
+
+
+def artifact_batches(gen, n: int, rows: int = ARTIFACT_BATCH) -> list[dict]:
+    """``n`` batches of ``rows``, an empty and a full history in each."""
+    out = []
+    for i in range(n):
+        hb = gen.batch(rows, 30 + i)
+        hb[SEQ][0], hb[SEQ + "_len"][0] = 0, 0
+        hb[SEQ][1], hb[SEQ + "_len"][1] = np.arange(1, 51, dtype=np.int32) * 997, 50
+        out.append(hb)
+    return out
+
+
+def export_on_cuda(live, path: str, quantize: bool, rows: int = ARTIFACT_BATCH):
+    """``live`` (a Predictor on cuda)'s model exported at ``rows``, then served
+    by HLOPredictor on cuda; prints the export's time and size."""
+    from recalgorithm_tpu_torch.serving.export import export_stablehlo
+    from recalgorithm_tpu_torch.serving.predictor import HLOPredictor
+
+    t0 = time.perf_counter()
+    export_stablehlo(live.model, live.model.schema, rows, path, quantize_embeddings=quantize)
+    t1 = time.perf_counter()
+    pred = HLOPredictor(path, device="cuda")
+    print(f"  exported {os.path.basename(path)} (B={rows}, int8 tables={quantize}): "
+          f"{os.path.getsize(path)} bytes, export {t1 - t0:.2f} s, load onto cuda "
+          f"{time.perf_counter() - t1:.2f} s", flush=True)
+    return pred
+
+
+def artifact_checks(name: str, export_dir: str, schema, gen, work: str
+                    ) -> tuple[dict[str, int], str]:
+    """``name``'s export (config defaults) exported on cuda as an f32 and an
+    int8 artifact at ARTIFACT_BATCH: each program holds one node of the
+    model's kernel op; served by HLOPredictor on cuda it launches that kernel
+    exactly once a batch and nothing else, and equals the live Predictor on
+    cuda (quantize as the artifact) within TOL; int8 and f32 agree within
+    INT8_ATOL.  Returns the launches of the artifacts' predictions and the
+    f32 artifact's path."""
+    from recalgorithm_tpu_torch.models import get_model
+    from recalgorithm_tpu_torch.serving.predictor import Predictor
+
+    cfg_cls, model_cls = get_model(name)
+    kernel = "din_attention" if name == "DIN" else "bst_attention_forward"
+    batches = artifact_batches(gen, ARTIFACT_BATCHES)
+    probs, launches, paths = {}, defaultdict(int), {}
+    f32 = Predictor(model_cls(cfg_cls(), schema), export_dir, device="cuda")
+    for quantize in (False, True):
+        live = f32 if not quantize else Predictor(model_cls(cfg_cls(), schema), export_dir,
+                                                  device="cuda", quantize=True)
+        paths[quantize] = os.path.join(work, f"{name}{'_int8' if quantize else ''}.pt2")
+        pred = export_on_cuda(f32, paths[quantize], quantize)
+        nodes = [str(n.target) for n in pred.program.graph.nodes if n.op == "call_function"]
+        ops = [n for n in nodes if n.startswith("recalgorithm_torch.")]
+        if ops != [KERNEL_OPS[name]]:
+            raise AssertionError(f"{name} artifact: kernel op nodes {ops}, want "
+                                 f"[{KERNEL_OPS[name]}]")
+        zero_counts()
+        got = [pred.predict_batch(hb)["read_comment"] for hb in batches]
+        counts = kernel_counts()
+        want = {k: (ARTIFACT_BATCHES if k == kernel else 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"{name} artifact (int8 {quantize}): launches {counts}, "
+                                 f"want {want} (one {kernel} a batch)")
+        for k, n in counts.items():
+            launches[k] += n
+        live_probs = [live.predict_batch(hb)["read_comment"] for hb in batches]
+        err = max(check_close(f"{name} artifact (int8 {quantize}) vs the live Predictor", a, b)
+                  for a, b in zip(got, live_probs))
+        probs[quantize] = np.concatenate(got)
+        print(f"  {name} artifact, int8 tables {quantize}: {ARTIFACT_BATCHES} batches of "
+              f"{ARTIFACT_BATCH} on cuda vs the live Predictor on cuda max abs err {err:.3e}; "
+              f"launches {counts}; op node {ops[0]}", flush=True)
+    gap = float(np.abs(probs[True] - probs[False]).max())
+    print(f"  {name}: int8 vs f32 artifact max abs diff {gap:.3e} (bound {INT8_ATOL})")
+    if not 0 < gap < INT8_ATOL:
+        raise AssertionError(f"{name}: int8 vs f32 probabilities differ by {gap}")
+    return dict(launches), paths[False]
+
+
+def artifacts_phase(work: str, gen, din_export: str, bst_export: str, wd_export: str,
+                    scoring: dict[str, str], card: str) -> dict[str, dict[str, int]]:
+    """Phase 14: serving artifacts on the card.  Returns each path's kernel
+    launches: the DIN and BST artifacts' predictions, HTTP, cli.score."""
+    from recalgorithm_tpu_torch.cli import score
+    from recalgorithm_tpu_torch.cli.serve import build_server
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.models.din import DIN, DINConfig
+    from recalgorithm_tpu_torch.models.wide_and_deep import WideAndDeep, WideAndDeepConfig
+    from recalgorithm_tpu_torch.serving.predictor import HLOPredictor, Predictor
+
+    root = os.path.join(work, "artifacts")
+    os.makedirs(root)
+    schema = wechat_schema(gen.vocab_sizes())
+    t_phase = time.perf_counter()
+    din_launches, din_f32 = artifact_checks("DIN", din_export, schema, gen, root)
+    bst_launches, bst_f32 = artifact_checks("BST", bst_export, schema, gen, root)
+
+    # ---- artifact sizes: W&D, whose 100,000-bucket cross table dominates
+    sizes, wd_probs = {}, {}
+    live = Predictor(WideAndDeep(WideAndDeepConfig(), schema), wd_export, device="cuda")
+    for quantize in (False, True):
+        path = os.path.join(root, f"WideAndDeep{'_int8' if quantize else ''}.pt2")
+        pred = export_on_cuda(live, path, quantize)
+        sizes[quantize] = os.path.getsize(path)
+        zero_counts()
+        wd_probs[quantize] = pred.predict_batch(artifact_batches(gen, 1)[0])["read_comment"]
+        if any(kernel_counts().values()):
+            raise AssertionError(f"the W&D artifact launched hand kernels: {kernel_counts()}")
+    ratio = sizes[True] / sizes[False]
+    gap = float(np.abs(wd_probs[True] - wd_probs[False]).max())
+    print(f"  WideAndDeep artifact bytes: f32 {sizes[False]}, int8 {sizes[True]}, ratio "
+          f"{ratio:.4f} (bound {INT8_BYTES}); int8 vs f32 max abs diff {gap:.3e}")
+    if not ratio < INT8_BYTES or not gap < INT8_ATOL:
+        raise AssertionError("the W&D int8 artifact is not small enough or not close enough")
+
+    # ---- cli/serve.py --stablehlo din=... --stablehlo bst=... over HTTP
+    args = argparse.Namespace(
+        stablehlo=[f"din={din_f32}", f"bst={bst_f32}"], model=None, vocabulary_dir=None,
+        synthetic_vocab_scale=1.0, host="127.0.0.1", port=0, max_batch_size=256,
+        max_delay_ms=2.0, device="cuda")
+    hb = artifact_batches(gen, 1, rows=16)[0]
+    zero_counts()
+    httpd, batchers = build_server(args)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    results: dict[tuple[str, int], float] = {}
+    errors: list[Exception] = []
+
+    def client(rows):
+        try:
+            for name in ("din", "bst"):
+                for i in rows:
+                    results[name, i] = post(url, payload_of(hb, i, schema), f"/predict/{name}")[0]
+        except Exception as exc:  # reported below, fails the run
+            errors.append(exc)
+
+    try:
+        threads = [threading.Thread(target=client, args=(range(j, 16, 4),)) for j in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        try:
+            post(url, payload_of(hb, 0, schema))
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = (e.code, json.loads(e.read())["error"])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        for bt in batchers.values():
+            bt.close()
+    http_counts = kernel_counts()
+    if errors or len(results) != 32:
+        raise AssertionError(f"{len(results)}/32 responses; errors: {errors[:3]}")
+    if refused is None or refused[0] != 404 or "several models" not in refused[1]:
+        raise AssertionError(f"a bare /predict with two artifacts served: {refused}")
+    for name, path in (("din", din_f32), ("bst", bst_f32)):
+        want = HLOPredictor(path, device="cuda").predict_batch(hb)["read_comment"]
+        err = check_close(f"HTTP /predict/{name} vs the artifact", np.array(
+            [results[name, i] for i in range(16)], np.float32), want)
+        print(f"  16 requests to /predict/{name} from 4 threads: vs its artifact's "
+              f"predict_batch max abs err {err:.3e}")
+    print(f"  a bare /predict: {refused[0]} ({refused[1]}); launches {http_counts}")
+    if http_counts["din_attention"] <= 0 or http_counts["bst_attention_forward"] <= 0 or \
+            http_counts["bst_attention_forward_save"] or http_counts["bst_attention_backward"]:
+        raise AssertionError(f"HTTP artifacts: launches {http_counts}")
+
+    # ---- cli/score.py: phase 13's BST artifact on its 62,000-row eval split
+    out_csv = os.path.join(root, "scored.csv")
+    zero_counts()
+    t0 = time.perf_counter()
+    score.main(["--stablehlo", scoring["artifact"], "--data", scoring["eval"],
+                "--vocabulary_dir", scoring["vocabulary"], "--out", out_csv, "--device", "cuda"])
+    score_s = time.perf_counter() - t0
+    score_counts = kernel_counts()
+    n_batches = -(-FILE_EVAL_ROWS // BST_BATCH)
+    want_counts = {k: (n_batches if k == "bst_attention_forward" else 0) for k in score_counts}
+    if score_counts != want_counts:
+        raise AssertionError(f"cli.score: launches {score_counts}, want {want_counts}")
+    with open(out_csv) as f:
+        got = list(csv.reader(f))
+    with open(scoring["predictions"]) as f:
+        want = list(csv.reader(f))
+    if got[0] != want[0] or len(got) != len(want) or len(got) != 1 + FILE_EVAL_ROWS:
+        raise AssertionError(f"cli.score: header {got[0]} vs {want[0]}, {len(got) - 1} rows "
+                             f"vs {len(want) - 1}")
+    g, w = np.array(got[1:], dtype=object), np.array(want[1:], dtype=object)
+    other = [0, 1, *range(3, g.shape[1])]
+    if not np.array_equal(g[:, other], w[:, other]):
+        raise AssertionError("cli.score: id tokens or labels differ from predictions.csv")
+    diff = np.abs(g[:, 2].astype(np.float64) - w[:, 2].astype(np.float64))
+    same = int((g[:, 2] == w[:, 2]).sum())
+    print(f"  cli.score on the {FILE_EVAL_ROWS}-row eval split: {score_s:.2f} s, launches "
+          f"{score_counts}; vs phase 13's predictions.csv: tokens and labels equal, "
+          f"probabilities max abs diff {diff.max():.1e} ({same} of {FILE_EVAL_ROWS} strings "
+          "equal)")
+    if diff.max() > 1e-6 + 1e-12:  # the CSV's last decimal
+        raise AssertionError("cli.score's probabilities are not predictions.csv's")
+
+    # ---- where a served batch's time goes: the artifact against the live
+    # Predictor, DIN, f32
+    print(f"  DIN served batch wall, median of {PROFILE_ITERS} calls after 3 warm ({card}):")
+    live = Predictor(DIN(DINConfig(), schema), din_export, device="cuda")
+    for rows in TIMED_BATCHES:
+        pred = (HLOPredictor(din_f32, device="cuda") if rows == ARTIFACT_BATCH else
+                export_on_cuda(live, os.path.join(root, f"DIN_b{rows}.pt2"), False, rows))
+        hb = artifact_batches(gen, 1, rows=rows)[0]
+        walls = {}
+        for label, p in (("artifact", pred), ("live", live), ("live", live),
+                         ("artifact", pred)):
+            for _ in range(3):
+                p.predict_batch(hb)
+            ts = []
+            for _ in range(PROFILE_ITERS):
+                t0 = time.perf_counter()
+                p.predict_batch(hb)
+                ts.append(time.perf_counter() - t0)
+            walls.setdefault(label, []).append(float(np.median(ts)) * 1e3)
+        print(f"    B={rows}: artifact {walls['artifact']} ms, live Predictor "
+              f"{walls['live']} ms (turns artifact, live, live, artifact)", flush=True)
+    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return {"DIN artifacts": din_launches, "BST artifacts": bst_launches,
+            "HTTP artifacts": http_counts, "cli.score": score_counts}
 
 
 def card_line() -> str:
@@ -1292,18 +1603,19 @@ def payload_of(hb, i, schema) -> dict:
     }
 
 
-def post(url: str, payload: dict) -> tuple[float, float]:
-    req = urllib.request.Request(url + "/predict", data=json.dumps(payload).encode(),
+def post(url: str, payload: dict, route: str = "/predict") -> tuple[float, float]:
+    req = urllib.request.Request(url + route, data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
     t0 = time.perf_counter()
     with urllib.request.urlopen(req, timeout=120) as r:
         body = json.loads(r.read())
         if r.status != 200:
-            raise AssertionError(f"POST /predict -> {r.status}: {body}")
+            raise AssertionError(f"POST {route} -> {r.status}: {body}")
     return body["predictions"]["read_comment"], time.perf_counter() - t0
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: no GPU to run on",
               file=sys.stderr)
@@ -1591,6 +1903,7 @@ def main() -> int:
     # no tower BN: a bias in front of a train-mode BN has a rounding-noise
     # gradient (PNN's case in tests/test_torch_train.py); nothing else is 0
     step_vs_cpu("DeepFM", zoo_dirs["DeepFM"], set(), batch_norm=False)
+    step_vs_cpu("WideAndDeep", zoo_dirs["WideAndDeep"], set(), batch_norm=False)
     for name in ZOO_PROFILED:
         train_step_profile(name, zoo_dirs[name], card, kind, kernel=None)
     golden_phase(ZOO_MODELS, work)
@@ -1598,15 +1911,23 @@ def main() -> int:
     phase("13. main path 4: training from TFRecord files on cuda: the native writer and "
           "readers, BST from the files, DIN streaming them, DeepFM accumulating gradients, "
           "GenericDNN and DeepFM on a Douban split; where the time goes")
-    file_counts = files_phase(work)
+    file_counts, scoring = files_phase(work)
+
+    phase("14. serving artifacts on cuda: DIN and BST exported (f32, int8) and served by "
+          "HLOPredictor, W&D's artifact sizes, two artifacts over HTTP, cli/score.py on "
+          "phase 13's eval split; the artifact's batch time against the live Predictor")
+    artifact_counts = artifacts_phase(work, gen, export_dir, best_dir, zoo_dirs["WideAndDeep"],
+                                      scoring, card)
 
     din_by_path = {"serving": serve_launches,
-                   "DIN stream": file_counts["DIN stream"]["din_attention"]}
+                   "DIN stream": file_counts["DIN stream"]["din_attention"],
+                   **{path: c["din_attention"] for path, c in artifact_counts.items()}}
     din_entry.update(launches=sum(din_by_path.values()), launches_by_path=din_by_path)
     report = {"kernels": [din_entry, *bst_entries(
         reports, {"BST": bst_counts_run, "AutoInt": autoint_counts,
-                  "BST from files": file_counts["BST from files"]})]}
-    print()
+                  "BST from files": file_counts["BST from files"], **artifact_counts})]}
+    print(f"\nchip_smoke.py took {time.perf_counter() - t_start:.1f} s, the kernels' build "
+          "included")
     print(card)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,12 @@ Run modes:
     streamed in chunks with ``--stream`` (and its on-disk chunk cache);
   * ``--synthetic``: the WeChat-shaped synthetic stream.
 
-Not ported yet: the mesh flags, ``--export_stablehlo``,
-``--export_quantized``, ``--serving_batch_size`` and ``--eval_recall_at``.
+After training, ``--export_stablehlo <path>`` writes a serving artifact
+(serving/export.py: a ``torch.export`` program, int8 tables with
+``--export_quantized``) at ``--serving_batch_size`` rows.  A model class
+with a ``wide_param_predicate`` (Wide&Deep) trains with the dual FTRL/deep
+optimizer from its config.  Not ported yet: the mesh flags and
+``--eval_recall_at``.
 
 After training: the final eval metrics are printed, and ``predictions.csv``
 holds per-task probabilities in the JAX CLI's column layout (reference
@@ -86,6 +90,15 @@ def build_parser(model_name: str | None = None) -> argparse.ArgumentParser:
                         help="accumulate k micro-batch gradients before each "
                              "optimizer step (effective batch = k x batch_size)")
     parser.add_argument("--predictions_csv", default="predictions.csv")
+    parser.add_argument("--export_stablehlo", default=None,
+                        help="after training, write a serving artifact (ids -> "
+                             "probabilities; a torch.export program, the JAX CLI's flag "
+                             "name) here, with <path>.manifest.json")
+    parser.add_argument("--export_quantized", action="store_true",
+                        help="int8 embedding tables in the --export_stablehlo artifact")
+    parser.add_argument("--serving_batch_size", type=int, default=0,
+                        help="batch size baked into the --export_stablehlo artifact "
+                             "(0 = the training batch size)")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--profile_dir", default=None,
                         help="write a torch.profiler trace of training here")
@@ -173,11 +186,18 @@ def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
     # ---- model + trainer
     task_names = tuple(cfg.task_names) or (schema.labels[0],)
     model = model_cls(cfg, schema, torch.Generator().manual_seed(args.seed))
-    lr = optimizers.make_schedule(cfg.learning_rate, schedule=cfg.lr_schedule,
-                                  warmup_steps=cfg.warmup_steps,
-                                  decay_steps=cfg.decay_steps)
+    # the dual FTRL/deep optimizer for any model class with a wide-parameter
+    # split (a class check: WideAndDeepBuiltin registers the same class)
+    if hasattr(model_cls, "wide_param_predicate"):
+        optimizer = optimizers.dual_wide_deep(
+            cfg.wide_part_learning_rate, cfg.deep_part_optimizer, cfg.deep_part_learning_rate,
+            model_cls.wide_param_predicate, [n for n, _ in model.named_parameters()])
+    else:
+        optimizer = optimizers.build(cfg.optimizer, optimizers.make_schedule(
+            cfg.learning_rate, schedule=cfg.lr_schedule, warmup_steps=cfg.warmup_steps,
+            decay_steps=cfg.decay_steps))
     trainer = Trainer(
-        model, task_names, optimizers.build(cfg.optimizer, lr),
+        model, task_names, optimizer,
         TrainerConfig(model_dir=args.model_dir, train_steps=cfg.train_steps,
                       log_every=args.log_every, eval_every_steps=args.eval_every_steps,
                       eval_throttle_secs=args.eval_throttle_secs,
@@ -235,6 +255,16 @@ def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
                 row += [f"{v:g}" for v in eval_labels[i]]
             writer.writerow(row)
     print(f"wrote {args.predictions_csv}")
+
+    # ---- the serving artifact (the reference exports a SavedModel at the end
+    # of every run)
+    if args.export_stablehlo:
+        from recalgorithm_tpu_torch.serving.export import export_stablehlo
+
+        export_stablehlo(trainer.model, schema, args.serving_batch_size or cfg.batch_size,
+                         args.export_stablehlo, quantize_embeddings=args.export_quantized)
+        print(f"wrote {args.export_stablehlo} ({os.path.getsize(args.export_stablehlo)} "
+              f"bytes, quantized={args.export_quantized})")
     return final_eval
 
 

@@ -1,7 +1,10 @@
 """HTTP model server: `python -m recalgorithm_tpu_torch.cli.serve --model DIN ...`
 
 Counterpart of ``recalgorithm_tpu/cli/serve.py``: a standalone JSON/HTTP
-server over the best export of ``--model_dir``, with dynamic request
+server over the best export of ``--model_dir`` (optionally with int8 tables,
+``--quantize``), or hermetically over ``torch.export`` artifacts of
+serving/export.py with no model code (``--stablehlo``, repeatable as
+``name=path``, each routed at ``/predict/<name>``), with dynamic request
 batching (serving/server.py), on the GPU unless ``--device cpu``.
 
     POST /predict   {"userid": 12, "feedid": "feedid_987", "dense": [...],
@@ -15,9 +18,6 @@ input) or raw string tokens when --vocabulary_dir is given (host-side
 translation, same as training).  Missing features default to 0 / PAD —
 `tf.Example` absent-feature semantics.  Sequences are truncated/padded to
 the schema's max length and their `*_len` columns derived automatically.
-
-Not offered yet: the JAX server's --quantize (int8 tables) and --stablehlo
-(hermetic artifacts).
 """
 
 from __future__ import annotations
@@ -143,8 +143,7 @@ def build_server(args) -> tuple[ThreadingHTTPServer, dict]:
     caller serves and closes every batcher.  ``args.device`` (default
     ``cuda``) places the model; no card and no ``cpu`` request raises."""
     from recalgorithm_tpu_torch.features.schema import wechat_schema
-    from recalgorithm_tpu_torch.models import MODEL_REGISTRY
-    from recalgorithm_tpu_torch.serving.predictor import Predictor, resolve_device
+    from recalgorithm_tpu_torch.serving.predictor import HLOPredictor, Predictor, resolve_device
     from recalgorithm_tpu_torch.serving.server import BatchingPredictor
 
     device = resolve_device(getattr(args, "device", None))
@@ -163,18 +162,36 @@ def build_server(args) -> tuple[ThreadingHTTPServer, dict]:
         )
         schema = wechat_schema(gen.vocab_sizes())
 
-    cfg_cls, model_cls = MODEL_REGISTRY[args.model]
-    cfg_kwargs = {
-        f.name: getattr(args, f.name)
-        for f in dataclasses.fields(cfg_cls) if hasattr(args, f.name)
-    }
-    model = model_cls(config=cfg_cls(**cfg_kwargs), schema=schema)
-    export_dir = args.export_dir or Predictor.latest_best(args.model_dir)
-    pred = Predictor(model, export_dir, device=device)
-    batchers = {args.model: BatchingPredictor(
-        pred, max_batch_size=args.max_batch_size,
-        max_delay_ms=args.max_delay_ms,
-    )}
+    if getattr(args, "stablehlo", None):
+        # hermetic mode: artifacts only, no model code.  Each spec is "path"
+        # or "name=path" (several models behind one server, routed by name);
+        # "name=" only when the left side has no path separator
+        batchers = {}
+        for i, spec in enumerate(args.stablehlo):
+            name, sep, path = spec.partition("=")
+            if not sep or not name or "/" in name:
+                name, path = "", spec
+            name = name or (f"model_{i}" if len(args.stablehlo) > 1 else "default")
+            pred = HLOPredictor(path, device=device)
+            batchers[name] = BatchingPredictor(
+                pred, max_batch_size=pred.batch_size,
+                max_delay_ms=args.max_delay_ms, buckets=(pred.batch_size,))
+    else:
+        from recalgorithm_tpu_torch.models import MODEL_REGISTRY
+
+        cfg_cls, model_cls = MODEL_REGISTRY[args.model]
+        cfg_kwargs = {
+            f.name: getattr(args, f.name)
+            for f in dataclasses.fields(cfg_cls) if hasattr(args, f.name)
+        }
+        model = model_cls(config=cfg_cls(**cfg_kwargs), schema=schema)
+        export_dir = args.export_dir or Predictor.latest_best(args.model_dir)
+        pred = Predictor(model, export_dir, device=device,
+                         quantize=getattr(args, "quantize", False))
+        batchers = {args.model: BatchingPredictor(
+            pred, max_batch_size=args.max_batch_size,
+            max_delay_ms=args.max_delay_ms,
+        )}
     for b in batchers.values():
         b.warmup(make_example(schema, {}, vocabs))
     handler = build_handler(batchers, schema, vocabs)
@@ -217,17 +234,25 @@ def add_dataclass_flags(parser: argparse.ArgumentParser, cfg_cls) -> None:
 
 
 def main(argv=None):
-    from recalgorithm_tpu_torch.models import MODEL_REGISTRY
-
     argv = list(sys.argv[1:] if argv is None else argv)
     pre = argparse.ArgumentParser(add_help=False)
-    pre.add_argument("--model", default=None, choices=sorted(MODEL_REGISTRY))
+    pre.add_argument("--model", default=None)
     pre_args, _ = pre.parse_known_args(argv)
+    # the model code is imported only when a --model is served: an artifact
+    # (--stablehlo) serves without it
+    registry = {}
+    if pre_args.model is not None:
+        from recalgorithm_tpu_torch.models import MODEL_REGISTRY as registry
 
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model", required=True, choices=sorted(MODEL_REGISTRY),
-                   help="model class of the export")
+    p.add_argument("--model", default=None, choices=sorted(registry) or None,
+                   help="model class of the export; not needed with --stablehlo")
+    p.add_argument("--stablehlo", action="append", default=None,
+                   help="serve a torch.export artifact of serving/export.py with no "
+                   "model code (the name is the JAX CLI's); batch size and inputs come "
+                   "from its .manifest.json.  Repeatable as name=path to serve several "
+                   "models at /predict/<name>")
     p.add_argument("--model_dir", default="./model_dir",
                    help="training dir; serves its best export")
     p.add_argument("--export_dir", default=None,
@@ -237,6 +262,8 @@ def main(argv=None):
     p.add_argument("--synthetic_vocab_scale", type=float, default=0.01,
                    help="schema sizing when no vocabulary_dir (1.0 = the "
                    "real WeChat table sizes)")
+    p.add_argument("--quantize", action="store_true",
+                   help="serve the gather-path embedding tables as per-row int8")
     p.add_argument("--device", default="cuda",
                    help="torch device of the model: cuda (default; raises "
                    "without a GPU) or cpu")
@@ -244,13 +271,15 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8377)
     p.add_argument("--max_batch_size", type=int, default=256)
     p.add_argument("--max_delay_ms", type=float, default=2.0)
-    if pre_args.model is not None:
-        add_dataclass_flags(p, MODEL_REGISTRY[pre_args.model][0])
+    if pre_args.model in registry:
+        add_dataclass_flags(p, registry[pre_args.model][0])
     args = p.parse_args(argv)
+    if not args.model and not args.stablehlo:
+        p.error("one of --model or --stablehlo is required")
 
     httpd, batchers = build_server(args)
     print(f"serving {sorted(batchers)} on http://{args.host}:{args.port} "
-          f"(device={args.device})", flush=True)
+          f"(device={args.device}, quantize={args.quantize})", flush=True)
 
     # graceful drain on SIGTERM (K8s/preemption): stop accepting, finish
     # queued requests, exit 0

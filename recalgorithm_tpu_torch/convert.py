@@ -16,8 +16,8 @@ rules, which :func:`from_flax` and :func:`to_flax` apply both ways:
     has no flax counterpart;
   * ``FieldEmbedder_0`` -> ``embedder``, Dice's ``BatchNorm_0`` -> ``bn``,
     and the tables of an ``embed`` collection (``embed_w`` for
-    FirstOrderLogit's) sit in its ``tables``; table rows keep their
-    ROW_ALIGN padding.
+    FirstOrderLogit's, ``wide_embed_w`` for W&D's wide cross) sit in its
+    ``tables``; table rows keep their ROW_ALIGN padding.
 
 Exports keep the JAX package's layout (``train/loop.py``,
 ``_Checkpointer.maybe_export_best``): ``<model_dir>/export/best_<step>/``
@@ -41,7 +41,8 @@ _MODULES = {"FieldEmbedder_0": "embedder", "BatchNorm_0": "bn"}
 _MODULES_BACK = {v: k for k, v in _MODULES.items()}
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _STATS_BACK = {v: k for k, v in _STATS.items()}
-_TABLE_COLLECTIONS = ("embed", "embed_w")  # EmbeddingCollection names
+# EmbeddingCollection names (W&D's wide cross table sits in ``wide_embed_w``)
+_TABLE_COLLECTIONS = ("embed", "embed_w", "wide_embed_w")
 EXPORT_FILE = "params.npz"
 
 
@@ -63,6 +64,11 @@ def _unflatten(flat: Mapping[tuple, np.ndarray]) -> dict:
             node = node.setdefault(k, {})
         node[path[-1]] = v
     return tree
+
+
+def torch_module_name(scope: tuple) -> str:
+    """The dotted torch name of the module at a flax scope path."""
+    return ".".join(_MODULES.get(m, m) for m in scope)
 
 
 def from_flax(variables: Mapping) -> dict[str, torch.Tensor]:

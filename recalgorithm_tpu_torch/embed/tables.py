@@ -17,7 +17,10 @@ different answers for ids outside ``[1, num_rows)``:
     reads row 0, and the result is multiplied by ``ids > 0``.
 
 ``embed_sequence`` always takes the gather rule, whatever the table's size,
-as the JAX package does.  ``embed_pooled`` counts every ``id > 0`` in the
+as the JAX package does.  A gather-path table quantized for serving
+(:meth:`EmbeddingCollection.quantize_`) gathers int8 rows and their per-row
+scales with the same clip rule and multiplies them (the JAX package's
+``qtables`` lookup).  ``embed_pooled`` counts every ``id > 0`` in the
 mean/sqrtn denominator, including out-of-range ids whose rows are zero on the
 dense rule.
 
@@ -97,8 +100,26 @@ class EmbeddingCollection(nn.Module):
         WeChat-shaped batch repeats the PAD id about 170k times at B=4096
         (sequences are mostly padding), which took that backward 51 ms on
         an H100 (PERF.md)."""
+        q = self._buffers.get(f"{table}__q")
+        if q is not None:  # int8 rows times their f32 scales, as gathered
+            idx = ids.long().clamp(0, q.shape[0] - 1)
+            return q[idx].to(torch.float32) * self._buffers[f"{table}__scale"][idx]
         tab = self.tables[table]
         return F.embedding(ids.long().clamp(0, tab.shape[0] - 1), tab)
+
+    def quantize_(self, table: str, q: torch.Tensor, scale: torch.Tensor) -> None:
+        """Serve ``table`` from int8 rows ``q`` (rows, dim) and per-row f32
+        ``scale`` (rows, 1) (``serving/quantize.py``): both become buffers
+        ``<table>__q`` / ``<table>__scale`` on the table's device and the f32
+        parameter leaves the module.  Serving only; a gather-path table only."""
+        tab = self.tables[table]
+        if self._is_dense(table) or q.shape != tab.shape or scale.shape != (tab.shape[0], 1):
+            raise ValueError(f"quantize_ {table!r}: a gather-path table of shape "
+                             f"{tuple(tab.shape)} takes q of that shape and (rows, 1) "
+                             f"scales, got {tuple(q.shape)} and {tuple(scale.shape)}")
+        del self.tables[table]
+        self.register_buffer(f"{table}__q", q.to(tab.device, torch.int8))
+        self.register_buffer(f"{table}__scale", scale.to(tab.device, torch.float32))
 
     def _dense_rows(self, table: str, ids: torch.Tensor) -> torch.Tensor:
         """Masked one-hot rule: rows of ids in [1, num_rows), zero elsewhere."""

@@ -1,7 +1,8 @@
 """Model zoo: importing this package populates the registry with the models
 ported so far: DIN, BST, AutoInt (AutoInt+ with ``use_deep_tower``), PNN,
 xDeepFM, FiBiNET, DeepCrossing, DCN, DCNv2, GDCN, GenericDNN, DeepFM, FFM,
-FwFM, AFM, NFM, DLRM, FinalMLP and MaskNet.
+FwFM, AFM, NFM, DLRM, FinalMLP, MaskNet and WideAndDeep (also registered as
+WideAndDeepBuiltin).
 
 Use ``recalgorithm_tpu_torch.models.get_model(name)`` for
 (config_cls, model_cls).
@@ -28,6 +29,7 @@ from recalgorithm_tpu_torch.models import (  # noqa: F401  (register the models)
     masknet,
     nfm,
     pnn,
+    wide_and_deep,
     xdeepfm,
 )
 

@@ -10,12 +10,14 @@ Counterpart of ``recalgorithm_tpu/ops/pallas/bst_attention.py``.  One
     bf16 under ``save_bf16``) for the backward;
   * :func:`bst_attention_backward`: dq, dk, dv from the saved P.
 
-:func:`bst_mha` is the entry point the model calls.  CPU tensors take the
-plain twin :func:`bst_mha_reference` (autograd through it gives the
-gradients).  CUDA tensors take the kernels: under ``no_grad`` or
-``inference_mode`` the forward without P; with a gradient wanted the forward
-with P inside a ``torch.autograd.Function`` whose backward is the backward
-kernel.  There is no fallback on the card: a kernel runs or the call raises.
+:func:`bst_mha` is the entry point the model calls.  With no gradient
+wanted (``no_grad``, ``inference_mode``, an exported graph) it calls the op
+``recalgorithm_torch::bst_mha_forward``: the forward without P on CUDA
+tensors, the plain twin :func:`bst_mha_reference` on CPU tensors.  With a
+gradient wanted CPU tensors take the twin (autograd through it gives the
+gradients), CUDA tensors the forward with P inside a
+``torch.autograd.Function`` whose backward is the backward kernel.  There is
+no fallback on the card: a kernel runs or the call raises.
 
 Semantics are ``mha_reference``'s: key-side mask j < len, a row with
 ``len = 0`` attends uniformly over all T keys and passes no gradient to q or
@@ -186,11 +188,34 @@ def bst_mha(q: torch.Tensor,        # (B, H, T, d) f32
             lengths: torch.Tensor,  # (B,) int32, valid KEY positions
             save_bf16: bool = False) -> torch.Tensor:
     """Masked multi-head attention, (B, H, T, d).  CPU: the twin; CUDA: the
-    kernels (with P saved and the backward kernel when a gradient is wanted)."""
+    kernels (with P saved and the backward kernel when a gradient is wanted).
+    Without a gradient both devices go through the op
+    ``recalgorithm_torch::bst_mha_forward``, so a traced graph holds one op
+    node that dispatches on the device it runs on."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"bst_mha: no kernel for device {q.device}")
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))):
+        return bst_mha_forward(q, k, v, lengths)
     if q.device.type == "cpu":
         return bst_mha_reference(q, k, v, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"bst_mha: no kernel for device {q.device}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _BSTAttention.apply(q, k, v, lengths, save_bf16)
+    return _BSTAttention.apply(q, k, v, lengths, save_bf16)
+
+
+@torch.library.custom_op("recalgorithm_torch::bst_mha_forward", mutates_args=(),
+                         device_types="cuda")
+def bst_mha_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """The inference forward as a torch op: :func:`bst_attention_forward` (the
+    kernel, checked and counted) on the card, the twin on the CPU (registered
+    below), a shape-only fake for tracing."""
     return bst_attention_forward(q, k, v, lengths)
+
+
+@bst_mha_forward.register_kernel("cpu")
+def _bst_mha_forward_cpu(q, k, v, lengths):
+    return bst_mha_reference(q, k, v, lengths)
+
+
+@bst_mha_forward.register_fake
+def _bst_mha_forward_fake(q, k, v, lengths):
+    return torch.empty_like(q)

@@ -5,7 +5,9 @@ is ``csrc/din_attention.cu`` (its source note gives the design and the
 bound); :func:`din_attention` launches it for CUDA tensors and takes
 :func:`din_attention_reference`, the same math in plain torch, for CPU
 tensors.  On the card there is no fallback: the kernel runs or the call
-raises.
+raises.  The inference forward is also the op
+``recalgorithm_torch::din_attention`` (:func:`din_attention_op`), which a
+``torch.export`` graph holds as one node.
 
 Weights are in torch ``Linear`` layout: w1 (64, 4H), b1 (64,), w2 (32, 64),
 b2 (32,), w3 (1, 32), b3 (1,).  On the card the forward is the kernel and
@@ -103,6 +105,29 @@ def _launch(query, keys, lengths, weights, use_softmax: bool) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("recalgorithm_torch::din_attention", mutates_args=(),
+                         device_types="cuda")
+def din_attention_op(query: torch.Tensor, keys: torch.Tensor, lengths: torch.Tensor,
+                     w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                     b2: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
+                     use_softmax: bool) -> torch.Tensor:
+    """The inference forward as a torch op: the kernel on the card (checked
+    and counted by ``_launch``), the twin on the CPU (registered below), a
+    shape-only fake for tracing."""
+    return _launch(query, keys, lengths, (w1, b1, w2, b2, w3, b3), use_softmax)
+
+
+@din_attention_op.register_kernel("cpu")
+def _din_attention_op_cpu(query, keys, lengths, w1, b1, w2, b2, w3, b3, use_softmax):
+    return din_attention_reference(query, keys, lengths, w1, b1, w2, b2, w3, b3,
+                                   use_softmax)
+
+
+@din_attention_op.register_fake
+def _din_attention_op_fake(query, keys, lengths, w1, b1, w2, b2, w3, b3, use_softmax):
+    return keys.new_empty((keys.shape[0], keys.shape[2]))
+
+
 class _DINAttention(torch.autograd.Function):
     """Kernel forward; backward by autograd through the twin's recompute."""
 
@@ -134,16 +159,19 @@ def din_attention(query: torch.Tensor,    # (B, H) f32
                   use_softmax: bool = False) -> torch.Tensor:
     """DIN attention pooling, (B, H).  CPU tensors: the plain twin.  CUDA
     tensors: the kernel, counted in ``din_attention.launches``, inside an
-    autograd Function when a gradient is wanted."""
-    if keys.device.type == "cpu":
-        return din_attention_reference(query, keys, lengths, w1, b1, w2, b2,
-                                       w3, b3, use_softmax)
-    if keys.device.type != "cuda":
+    autograd Function when a gradient is wanted.  Without a gradient both
+    devices go through the op ``recalgorithm_torch::din_attention``, so a
+    traced graph (``serving/export.py``) holds one op node that dispatches
+    on the device it runs on."""
+    if keys.device.type not in ("cpu", "cuda"):
         raise ValueError(f"din_attention: no kernel for device {keys.device}")
     weights = (w1, b1, w2, b2, w3, b3)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (query, keys, *weights)):
-        return _DINAttention.apply(query, keys, lengths, use_softmax, *weights)
-    return _launch(query, keys, lengths, weights, use_softmax)
+    if not (torch.is_grad_enabled()
+            and any(x.requires_grad for x in (query, keys, *weights))):
+        return din_attention_op(query, keys, lengths, *weights, use_softmax)
+    if keys.device.type == "cpu":
+        return din_attention_reference(query, keys, lengths, *weights, use_softmax)
+    return _DINAttention.apply(query, keys, lengths, use_softmax, *weights)
 
 
 din_attention.launches = 0

@@ -7,7 +7,9 @@ Responsibilities (the reference's Estimator usage, wide_and_deep.py:331-376):
     regularisation terms the model returns beside its logits; BatchNorm
     running statistics update in train mode (UPDATE_OPS parity); Adam;
   * streaming train metrics (loss / accuracy / logloss / calibration /
-    200-bin AUC) on the device, logged every ``log_every`` steps;
+    200-bin AUC) on the device, logged every ``log_every`` steps with the
+    summaries the model keeps in ``sown`` (scalars, or histogram records
+    in ``summaries/scalars.jsonl``);
   * eval every ``eval_every_steps`` steps or ``eval_throttle_secs`` seconds,
     and a final eval;
   * checkpoints (``torch.save``: model, optimizer, step, dropout generator)
@@ -99,7 +101,8 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, task_names: tuple[str, ...],
                  optimizer: Callable, config: TrainerConfig,
                  device: str | torch.device | None = None):
-        """``optimizer`` is a factory of the parameters (``optimizers.build``);
+        """``optimizer`` is a factory of the parameters (``optimizers.build``,
+        ``optimizers.dual_wide_deep``);
         ``device`` defaults to ``cuda`` and raises without a card."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -219,6 +222,33 @@ class Trainer:
                 float(M.mean_compute(tm.ymean)), 1e-7)
         return out
 
+    def _log_summaries(self, writer: SummaryWriter, step: int, log_fn) -> None:
+        """Log the summaries the model kept in its last train-mode forward
+        (``model.sown``, e.g. the W&D wide kernel and its norm), as the JAX
+        trainer logs its sown collection: a value of size 1 to the scalar
+        stream and the console, up to 32 values as indexed scalars, larger
+        ones as a histogram record."""
+        sown = getattr(self.model, "sown", None)
+        if not sown:
+            return
+        scalars: dict[str, float] = {}
+        console: list[str] = []
+        for tag, leaf in sown.items():
+            v = leaf.detach().cpu().numpy()
+            if v.size == 1:
+                scalars[f"summaries/{tag}"] = float(v)
+                console.append(f"{tag}={float(v):.5f}")
+            elif v.size <= 32:
+                for i, x in enumerate(v.ravel()):
+                    scalars[f"summaries/{tag}/{i}"] = float(x)
+                console.append(f"{tag}=[" + " ".join(f"{x:.4f}" for x in v.ravel()) + "]")
+            else:
+                writer.histogram(step, f"summaries/{tag}", v)
+        if scalars:
+            writer.scalars(step, scalars)
+        if console:
+            log_fn(f"step {step} summaries: " + " ".join(console))
+
     # -- public API ----------------------------------------------------------
 
     def evaluate(self, eval_batches: Iterable[Mapping[str, np.ndarray]]) -> dict[str, float]:
@@ -302,6 +332,7 @@ class Trainer:
                            + f" ({rate:,.0f} ex/s)")
                     summary.scalars(step, {f"train/{k}": v for k, v in snap.items()}
                                     | {"train/examples_per_s": rate})
+                    self._log_summaries(summary, step, log_fn)
                     t0, last_log_step = time.time(), step
                 if cfg.save_checkpoints_steps and step % cfg.save_checkpoints_steps == 0:
                     checkpointer.save(self)

@@ -1,16 +1,16 @@
 """Optimizers with reference parity, and learning-rate schedules.
 
 Counterpart of ``recalgorithm_tpu/train/optimizers.py``: ``build`` for
-adam, adagrad, rmsprop and sgd, and ``make_schedule``.  FTRL, LazyAdam and
-the Wide&Deep dual optimizer wait for the models that use them (Wide&Deep,
-DIEN).
+adam, adagrad, rmsprop, sgd and ftrl, ``make_schedule``, and the Wide&Deep
+dual optimizer ``dual_wide_deep``.  LazyAdam waits for DIEN.
 
 ``torch.optim.Adam`` computes optax's Adam update:
 ``lr * m_hat / (sqrt(v_hat) + eps)`` with bias-corrected moments, and
 ``torch.optim.SGD`` without momentum optax's ``sgd``.  Adagrad and RMSProp
 are not torch's: optax puts eps inside the square root (torch outside), and
 its RMSProp decays by 0.9 (torch 0.99), so :class:`Adagrad` and
-:class:`RMSProp` below compute optax's formulas.  A schedule is a function
+:class:`RMSProp` below compute optax's formulas.  :class:`Ftrl` is the JAX
+package's own FTRL-proximal (TF1 ``FtrlOptimizer`` semantics).  A schedule is a function
 of the 0-based count of updates already applied, as
 ``optax.scale_by_schedule`` evaluates it; :class:`Optimizer` sets the rate
 before each step.
@@ -19,7 +19,7 @@ before each step.
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Sequence
 
 import torch
 
@@ -113,6 +113,47 @@ class RMSProp(torch.optim.Optimizer):
                 p.add_(torch.rsqrt(nu + group["eps"]) * p.grad, alpha=-group["lr"])
 
 
+class Ftrl(torch.optim.Optimizer):
+    """FTRL-proximal with TF1 ``FtrlOptimizer`` defaults (McMahan et al.), as
+    the JAX package's ``ftrl``: per-coordinate accumulators n (from
+    ``initial_accumulator_value``) and z (from 0), ``learning_rate_power``
+    p = -0.5, optional l1/l2.  Each step
+
+        n' = n + g^2;  z' = z + g - (n'^-p - n^-p) / lr * w;
+        w  = -(z' - sign(z') l1) / (n'^-p / lr + 2 l2)  where |z'| > l1, else 0
+
+    *replaces* the parameter, as TF's does.  A constant learning rate only
+    (the reference's wide part)."""
+
+    def __init__(self, params, lr: float, learning_rate_power: float = -0.5,
+                 initial_accumulator_value: float = 0.1,
+                 l1_regularization_strength: float = 0.0,
+                 l2_regularization_strength: float = 0.0):
+        super().__init__(params, dict(lr=lr, power=learning_rate_power,
+                                      initial_accumulator_value=initial_accumulator_value,
+                                      l1=l1_regularization_strength,
+                                      l2=l2_regularization_strength))
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for group in self.param_groups:
+            alpha, p, l1, l2 = group["lr"], group["power"], group["l1"], group["l2"]
+            for w in group["params"]:
+                if w.grad is None:
+                    continue
+                state = self.state[w]
+                if not state:
+                    state["z"] = torch.zeros_like(w)
+                    state["n"] = torch.full_like(w, group["initial_accumulator_value"])
+                g, z, n = w.grad, state["z"], state["n"]
+                n_new = n + g * g
+                z.copy_(z + g - (n_new ** (-p) - n ** (-p)) / alpha * w)
+                n.copy_(n_new)
+                denom = n_new ** (-p) / alpha + 2.0 * l2
+                w.copy_(torch.where(z.abs() > l1, -(z - torch.sign(z) * l1) / denom,
+                                    torch.zeros_like(z)))
+
+
 class Optimizer:
     """A torch optimizer stepped as optax steps its transformation: the
     scheduled rate of update ``count`` is set before the update."""
@@ -154,9 +195,56 @@ def build(name: str, learning_rate: float | Schedule
         make = RMSProp
     elif name == "sgd":
         make = torch.optim.SGD
-    elif name in ("ftrl", "lazyadam"):
+    elif name == "ftrl":
+        if callable(learning_rate):
+            raise ValueError("ftrl takes a constant learning rate")
+        make = Ftrl
+    elif name == "lazyadam":
         raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (adam, adagrad, rmsprop and sgd are)")
+            f"optimizer {name!r} is not ported yet (adam, adagrad, rmsprop, sgd and "
+            "ftrl are)")
     else:
         raise ValueError(f"unknown optimizer {name!r}")
     return lambda params: Optimizer(make(params, schedule(0)), schedule)
+
+
+class DualOptimizer:
+    """Two :class:`Optimizer` s stepped together, each on its own parameters
+    (``optax.multi_transform`` of two labels)."""
+
+    def __init__(self, **parts: Optimizer):
+        self.parts = parts
+
+    def zero_grad(self) -> None:
+        for opt in self.parts.values():
+            opt.zero_grad()
+
+    def step(self) -> None:
+        for opt in self.parts.values():
+            opt.step()
+
+    def state_dict(self) -> dict:
+        return {name: opt.state_dict() for name, opt in self.parts.items()}
+
+    def load_state_dict(self, state: dict) -> None:
+        for name, opt in self.parts.items():
+            opt.load_state_dict(state[name])
+
+
+def dual_wide_deep(wide_lr: float, deep_optimizer: str, deep_lr: float,
+                   wide_predicate: Callable[[str], bool], names: Sequence[str]
+                   ) -> Callable[[Iterable[torch.nn.Parameter]], DualOptimizer]:
+    """The Wide&Deep dual optimizer (reference wide_and_deep.py:251-276): FTRL
+    at ``wide_lr`` on the parameters ``wide_predicate`` selects by name, the
+    ``deep_optimizer`` at ``deep_lr`` on the rest.  ``names``: the model's
+    parameter names in ``parameters()`` order, the order the factory
+    receives the parameters in."""
+    def make(params) -> DualOptimizer:
+        params = list(params)
+        if len(params) != len(names):
+            raise ValueError(f"{len(params)} parameters for {len(names)} names")
+        wide = [p for n, p in zip(names, params) if wide_predicate(n)]
+        deep = [p for n, p in zip(names, params) if not wide_predicate(n)]
+        return DualOptimizer(wide=build("ftrl", wide_lr)(wide),
+                             deep=build(deep_optimizer, deep_lr)(deep))
+    return make

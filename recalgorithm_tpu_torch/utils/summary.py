@@ -1,8 +1,8 @@
-"""Scalar summaries as JSONL, and a profiler scope.
+"""Scalar and histogram summaries as JSONL, and a profiler scope.
 
 Counterpart of ``recalgorithm_tpu/utils/summary.py`` (its TensorBoard
-mirror and histograms are not ported): an append-only ``scalars.jsonl`` of
-``{"step", "time", tag: value}`` records that any tool can read, and
+mirror is not ported): an append-only ``scalars.jsonl`` of ``{"step",
+"time", tag: value}`` and histogram records that any tool can read, and
 :func:`profile`, the ``torch.profiler`` counterpart of its ``jax.profiler``
 scope.
 """
@@ -17,7 +17,7 @@ from typing import Mapping
 
 
 class SummaryWriter:
-    """JSONL scalar sink."""
+    """JSONL scalar and histogram sink."""
 
     def __init__(self, log_dir: str):
         os.makedirs(log_dir, exist_ok=True)
@@ -26,6 +26,22 @@ class SummaryWriter:
     def scalars(self, step: int, values: Mapping[str, float]) -> None:
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in values.items()})
+        self._f.write(json.dumps(rec) + "\n")
+
+    def histogram(self, step: int, tag: str, values, bins: int = 30) -> None:
+        """tf.summary.histogram parity: binned counts and moments, one JSONL
+        record."""
+        import numpy as np
+
+        v = np.asarray(values, dtype=np.float64).ravel()
+        counts, edges = np.histogram(v, bins=bins)
+        rec = {
+            "step": int(step), "time": time.time(), "histogram": tag,
+            "mean": float(v.mean()), "std": float(v.std()),
+            "min": float(v.min()), "max": float(v.max()),
+            "counts": counts.tolist(),
+            "edges": [float(e) for e in edges],
+        }
         self._f.write(json.dumps(rec) + "\n")
 
     def close(self) -> None:

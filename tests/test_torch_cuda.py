@@ -267,3 +267,53 @@ def test_interacting_layer_on_cuda_matches_cpu(cuda):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-5 * scale)
     with pytest.raises(ValueError, match=r"\(B, H, T, 16\)"):
         InteractingLayer(16, 2, 8).cuda()(xg)  # the kernels take d = 16 only
+
+
+@pytest.mark.cuda
+def test_custom_ops_equal_the_raw_kernels(cuda):
+    """The inference ops a traced graph holds launch the same kernels: bitwise
+    equal to the raw launches, one count each."""
+    dev, weights = _case(256, seed=3)
+    for use_softmax in (False, True):
+        n = tkern.din_attention.launches
+        op = torch.ops.recalgorithm_torch.din_attention(*dev, *weights, use_softmax)
+        raw = tkern._launch(*dev, tuple(weights), use_softmax)
+        torch.cuda.synchronize()
+        assert tkern.din_attention.launches == n + 2
+        assert torch.equal(op, raw)
+    q, k, v, _, lengths = _bst_case(256, 3, 51, seed=4, main_mix=True)
+    n = bkern.bst_attention_forward.launches
+    op = torch.ops.recalgorithm_torch.bst_mha_forward(q, k, v, lengths)
+    raw = bkern.bst_attention_forward(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert bkern.bst_attention_forward.launches == n + 2
+    assert torch.equal(op, raw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["DIN", "BST"])
+def test_cpu_exported_artifact_moved_to_cuda_launches_the_kernels(cuda, tmp_path, name):
+    """An artifact exported on the CPU, served by HLOPredictor on cuda: the
+    whole program moves to the card, its kernel node launches the kernel
+    once a batch, and the probabilities are the CPU's within TOL."""
+    from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.models import get_model
+    from recalgorithm_tpu_torch.serving.export import export_stablehlo
+    from recalgorithm_tpu_torch.serving.predictor import HLOPredictor
+
+    gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=2, vocab_scale=0.05))
+    cfg_cls, cls = get_model(name)
+    model = cls(cfg_cls(hidden_units=(16,)), wechat_schema(gen.vocab_sizes()),
+                torch.Generator().manual_seed(0))
+    path = str(tmp_path / f"{name}.pt2")
+    export_stablehlo(model, model.schema, 64, path)
+    hb = gen.batch(40, 1)
+    want = HLOPredictor(path, device="cpu").predict_batch(hb)["read_comment"]
+    pred = HLOPredictor(path, device="cuda")
+    counter = tkern.din_attention if name == "DIN" else bkern.bst_attention_forward
+    n = counter.launches
+    got = pred.predict_batch(hb)["read_comment"]
+    assert counter.launches == n + 1
+    assert all(t.device.type == "cuda" for t in pred.program.state_dict.values())
+    np.testing.assert_allclose(got, want, **TOL)

@@ -260,8 +260,8 @@ def test_serve_cli_help_names_what_waits():
         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0
     text = " ".join(out.stdout.split()).lower()
-    assert "not offered yet" in text and "--quantize" in text
-    assert "--stablehlo" in text
+    assert "not offered yet" not in text  # --quantize and --stablehlo are offered
+    assert "--quantize" in text and "--stablehlo" in text
     assert "--device" in text and "--use_softmax" in text
 
 

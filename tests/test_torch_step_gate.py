@@ -2,8 +2,12 @@
 (``step_gradient_ratios``), on the CPU at a small size: the same step in f32
 with the batch rows in another order (the same gradient, other rounding)
 passes; a step whose attention passes dk scaled by 1 + 1e-3 (a kernel fault
-far below the size of any real gradient) fails on w_k.  And the rows the
-gate keeps (``kink_free_rows``): none with a relu input at 0."""
+far below the size of any real gradient) fails on w_k; a feedid table
+gradient scaled by 1 + 1e-3 fails on that table.  An embedding table's
+allowance is rtol x the f64 sum of its terms' magnitudes
+(``lookup_abs_sums``): a row whose terms cancel passes with the f32 noise of
+those terms, which the allowance from |sum| refuses.  And the rows the gate
+keeps (``kink_free_rows``): none with a relu input at 0."""
 
 import importlib.util
 import os
@@ -29,7 +33,11 @@ B = 256
 CFG = BSTConfig(hidden_units=(64, 32), dropout_rate=0.0)
 
 
+FEEDID = "embedder.embed.tables.feedid"
+
+
 def _grads(tmp_path, batch, f64=False):
+    """The step's gradients, and the f64 step's ``lookup_abs_sums`` too."""
     gen_schema = wechat_schema(SyntheticWeChat(
         wechat_schema(), SyntheticConfig(seed=7, vocab_scale=0.005)).vocab_sizes())
     model = BST(CFG, gen_schema, generator=torch.Generator().manual_seed(0))
@@ -40,33 +48,66 @@ def _grads(tmp_path, batch, f64=False):
         model.double()
         dev = {k: x.double() if x.is_floating_point() else x for k, x in dev.items()}
     model.train()
-    loss, _ = tr._loss_and_logits(dev)
-    loss.backward()
-    return {n: p.grad.double() for n, p in model.named_parameters()}
+    with chip_smoke.lookup_abs_sums(model) as sums:
+        loss, _ = tr._loss_and_logits(dev)
+        loss.backward()
+    grads = {n: p.grad.double() for n, p in model.named_parameters()}
+    return (grads, sums) if f64 else grads
 
 
-@pytest.mark.parametrize("case", ["reordered_rows", "dk_scaled"])
+@pytest.mark.parametrize("case", ["reordered_rows", "dk_scaled", "table_scaled"])
 def test_step_gate(tmp_path, monkeypatch, case):
     gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=7, vocab_scale=0.005))
     batch = gen.batch(B, 1)
     cpu = _grads(tmp_path, batch)
-    exact = _grads(tmp_path, batch, f64=True)
+    exact, sums = _grads(tmp_path, batch, f64=True)
     if case == "reordered_rows":
         perm = np.random.default_rng(0).permutation(B)
         other = _grads(tmp_path, {k: np.ascontiguousarray(v[perm]) for k, v in batch.items()})
-    else:
+    elif case == "dk_scaled":
         plain = attention.bst_mha
         monkeypatch.setattr(attention, "bst_mha", lambda q, k, v, lengths, save_bf16=False:
                             plain(q, k + 1e-3 * (k - k.detach()), v, lengths, save_bf16))
         other = _grads(tmp_path, batch)
+    else:
+        other = dict(cpu, **{FEEDID: cpu[FEEDID] * (1 + 1e-3)})
     ratios = chip_smoke.step_gradient_ratios(other, cpu, exact,
-                                             chip_smoke.zero_gradient_params(CFG))
+                                             chip_smoke.zero_gradient_params(CFG), sums)
     assert set(ratios) == set(exact)
+    # every table of the model, each summed from its own lookups' terms
+    assert set(sums) == {n for n in exact if ".tables." in n}
+    for name, s in sums.items():
+        assert (s >= exact[name].abs() * (1 - 1e-12)).all(), name  # |sum| <= sum|terms|
     if case == "reordered_rows":
         assert max(ratios.values()) <= 1.0, ratios
-    else:
+    elif case == "dk_scaled":
         assert ratios["transformer_0.w_k"] > 1.0, ratios
         assert ratios["transformer_0.w_v"] <= 1.0, ratios  # dv is untouched
+    else:
+        assert ratios[FEEDID] > 1.0, ratios
+        assert max(r for n, r in ratios.items() if n != FEEDID) <= 1.0, ratios
+
+
+def test_step_gate_table_row_whose_terms_cancel():
+    """Row 0 of a table sums two terms of 1e3 that cancel to 1e-3: the f32
+    noise of those terms (100 ulps of 1e3) passes against rtol x sum|terms|
+    and fails against rtol x |sum|; an error of 1e-3 x the sum|terms| fails
+    either way.  A tensor that is no table keeps the |sum| rule."""
+    exact = {"embed.tables.t": torch.tensor([[1e-3], [5e-4]], dtype=torch.float64),
+             "dense.weight": torch.tensor([1e-3], dtype=torch.float64)}
+    sums = {"embed.tables.t": torch.tensor([[2e3], [5e-4]], dtype=torch.float64)}
+    noise = 100 * 2.0**-24 * 1e3
+    gpu = {"embed.tables.t": exact["embed.tables.t"] + torch.tensor([[noise], [0.0]],
+                                                                    dtype=torch.float64),
+           "dense.weight": exact["dense.weight"]}
+    ratio = lambda g, s: chip_smoke.step_gradient_ratios(g, exact, exact, set(), s)
+    assert ratio(gpu, sums)["embed.tables.t"] <= 1.0
+    assert ratio(gpu, {})["embed.tables.t"] > 1.0
+    far = dict(gpu, **{"embed.tables.t": exact["embed.tables.t"] + torch.tensor(
+        [[2.0], [0.0]], dtype=torch.float64)})
+    assert ratio(far, sums)["embed.tables.t"] > 1.0
+    bad_dense = dict(gpu, **{"dense.weight": exact["dense.weight"] + noise})
+    assert ratio(bad_dense, sums)["dense.weight"] > 1.0
 
 
 class _TwoRelus(torch.nn.Module):

@@ -182,7 +182,7 @@ def test_dropout_is_flax_dropout_on_its_generator():
 
 def test_other_optimizers_not_ported_yet():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        toptimizers.build("ftrl", 0.1)
+        toptimizers.build("lazyadam", 0.1)
 
 
 # ---------------------------------------------------------------------------
