@@ -93,7 +93,22 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      cli/score.py with phase 13's BST artifact on the 62,000-row eval
      split: predictions.csv's rows, tokens and labels, its probabilities to
      the CSV's 6 decimals.  The DIN artifact's batch wall against the live
-     Predictor's at B = 8 and 256.
+     Predictor's at B = 8 and 256;
+ 15. main path 6: the multi-task family, DIEN and TwoTower at full width
+     (config defaults, real tables, B=4096): MMOE, PLE, ESMM (its derived
+     ctcvr task), SharedBottom, DIEN (T = 50, LazyAdam) and TwoTower (with
+     --eval_recall_at 50) train ZOO_TRAIN_STEPS steps each through cli.main
+     on cuda, every task's export predictions held to the CPU; a PLE and a
+     DIEN train step (no tower BN, dropout 0) against the f64 CPU step as
+     phase 8; the DIEN LazyAdam step leaves every element with a 0 gradient,
+     every table row the batch did not read among them, bitwise unchanged;
+     the PLE and DIEN train steps profiled; TwoTower's corpus from the eval
+     split: brute_force_top_k and quantized_top_k on cuda against their CPU
+     twins, the int8 corpus's overlap with the exact top-k (gated on
+     tests/test_retrieval.py's own case), Recall@50 beside its random baseline; MMOE
+     (three tasks) and TwoTower (the logit) exported on cuda and held to their
+     live Predictor; each golden recipe gated on every task's band (MIN_EDGE
+     for GOLDEN_EDGE_ONLY).  These paths launch no hand kernel.
 
 Each main path's kernel launch counts are set to 0 just before it and read
 just after: a kernel of the path that never launched fails the run.  The
@@ -184,18 +199,21 @@ GOLDEN_PER_MODEL = {"AFM": {"steps": 200, "lr": 0.02}, "DeepFM": {"steps": 800, 
                     "FFM": {"steps": 1400, "lr": 0.01}, "FwFM": {"steps": 200, "lr": 0.02},
                     "NFM": {"steps": 200, "lr": 0.02}, "PNN": {"steps": 800, "lr": 0.02},
                     "FiBiNET": {"steps": 200, "lr": 0.02}, "BST": {"steps": 300, "lr": 0.01},
-                    "DCN": {"steps": 150}}
-GOLDEN_OVERRIDES = {"hidden_units": (64, 32), "output_dimension": 16,
-                    "cin_layer_feature_maps": (8, 8), "attention_factor": 16,
-                    "cross_hash_buckets": 5000}
+                    "DCN": {"steps": 150}, "MMOE": {"steps": 150}}
+GOLDEN_OVERRIDES = {"hidden_units": (64, 32), "expert_hidden_units": 32,
+                    "output_dimension": 16, "cin_layer_feature_maps": (8, 8),
+                    "attention_factor": 16, "cross_hash_buckets": 5000, "num_experts": 3,
+                    "num_experts_per_task": (2, 2, 2), "num_experts_in_shared": 4,
+                    "gru_output_units": 8}
 # the golden recipe's FTRL rate for the wide part of a model with a
 # wide-parameter split (W&D), beside the deep part's Adam at the recipe's rate
 GOLDEN_WIDE_LR = 0.01
 MIN_EDGE = 0.57
-# models whose band is under 2 sigma of their own rerun spread, too narrow
-# for another init draw: gated on MIN_EDGE
+# models whose band (of a task, for a multi-task model) is under 2 sigma of
+# their own rerun spread, too narrow for another init draw: every task gated
+# on MIN_EDGE
 GOLDEN_EDGE_ONLY = ("xDeepFM", "FiBiNET", "AFM", "NFM", "GenericDNN", "FinalMLP",
-                    "WideAndDeep")
+                    "WideAndDeep", "PLE", "ESMM", "SharedBottom")
 # phase 13: the WeChat split written to TFRecords; the reference's 3,322,313
 # train rows are cut to 64 batches of 4096 for the time limit, and 62,000
 # eval rows leave the last eval batch padded
@@ -218,6 +236,18 @@ FEED_WARM, FEED_STEPS = 5, 20  # BST steps per feed in the feed comparison
 ARTIFACT_BATCH, ARTIFACT_BATCHES = 256, 3
 INT8_ATOL, INT8_BYTES = 0.02, 0.45
 TIMED_BATCHES = (8, 256)
+# phase 15: the six models the earlier phases do not train, each as phase 12
+# trains its models; TwoTower's Recall@K; the int8 corpus's overlap with the
+# exact top-k on tests/test_retrieval.py's case at least that test's floor; a
+# top-k score gap under TOPK_TIE is a tie between the cuda and CPU f32 sums;
+# the PLE and DIEN step profiles over NEW_PROFILE_ITERS steps each, to keep
+# the phase in its 90 s (DIEN's step is thousands of launches)
+NEW_MODELS = ("MMOE", "PLE", "ESMM", "SharedBottom", "DIEN", "TwoTower")
+RECALL_K = 50
+QUANTIZED_OVERLAP = 0.9
+TOPK_TIE = 1e-5
+NEW_PROFILE_ITERS = 4
+TWIN_USERS = 1024  # users whose top-k on cuda is held to the CPU twin's
 KERNEL_OPS = {"DIN": "recalgorithm_torch.din_attention.default",
               "BST": "recalgorithm_torch.bst_mha_forward.default"}
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -503,9 +533,9 @@ def train_cli(model: str, model_dir: str, steps: int, extra=(), synthetic: bool 
     return final
 
 
-def profile_train_step(trainer, batches, kernel: str | None) -> dict:
+def profile_train_step(trainer, batches, kernel: str | None, iters: int = STEP_ITERS) -> dict:
     """Where a train step's time goes: device ms of one step from CUDA
-    events around STEP_ITERS steps launched back to back (the steady pipeline,
+    events around ``iters`` steps launched back to back (the steady pipeline,
     host gaps included), the median host wall of a step that ends in a
     synchronize, and the device busy time per step (torch.profiler, every
     kernel and copy: one stream, so their sum is the busy time).  Fails if
@@ -519,25 +549,25 @@ def profile_train_step(trainer, batches, kernel: str | None) -> dict:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(STEP_ITERS):
+    for i in range(iters):
         trainer.train_step(batches[i % len(batches)])
     end.record()
     end.synchronize()
-    step_ms = start.elapsed_time(end) / STEP_ITERS
+    step_ms = start.elapsed_time(end) / iters
     walls = []
-    for i in range(STEP_ITERS):
+    for i in range(iters):
         t0 = time.perf_counter()
         trainer.train_step(batches[i % len(batches)])
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(STEP_ITERS):
+        for i in range(iters):
             trainer.train_step(batches[i % len(batches)])
         torch.cuda.synchronize()
     events = device_events(prof)
     by_name: dict[str, float] = defaultdict(float)
     for e in events:
-        by_name[e.name] += e.time_range.elapsed_us() / STEP_ITERS / 1e3
+        by_name[e.name] += e.time_range.elapsed_us() / iters / 1e3
     busy_ms = sum(by_name.values())
     if kernel is not None and not any(kernel in name for name in by_name):
         raise AssertionError(f"the profiled train steps ran no {kernel} kernel")
@@ -546,15 +576,17 @@ def profile_train_step(trainer, batches, kernel: str | None) -> dict:
         raise AssertionError(f"the profiled train steps ran hand kernels: {hand}")
     return {"step_ms": step_ms, "wall_ms": float(np.median(walls)) * 1e3,
             "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / step_ms,
-            "device_ops_per_step": len(events) / STEP_ITERS,
+            "device_ops_per_step": len(events) / iters,
             "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]}
 
 
-def golden_auc(name: str, device: str, model_dir: str, init_seed: int = GOLDEN_SEED) -> float:
+def golden_auc(name: str, device: str, model_dir: str,
+               init_seed: int = GOLDEN_SEED) -> dict[str, float]:
     """tests/golden_common.py's fixed-seed recipe for ``name`` (GOLDEN_*
-    above) through the port's Trainer; returns the eval AUC.  ``init_seed``
-    seeds the weights and the dropout stream, as golden_common's trainer
-    seed does; the data stay those of GOLDEN_SEED."""
+    above) through the port's Trainer; returns every task's eval AUC
+    (``<task>_auc``).  ``init_seed`` seeds the weights and the dropout
+    stream, as golden_common's trainer seed does; the data stay those of
+    GOLDEN_SEED."""
     from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
     from recalgorithm_tpu_torch.features.schema import wechat_schema
     from recalgorithm_tpu_torch.models import get_model
@@ -584,28 +616,33 @@ def golden_auc(name: str, device: str, model_dir: str, init_seed: int = GOLDEN_S
         gen.batches(batch, steps),
         lambda: gen.batches(batch, GOLDEN_EVAL_BATCHES, start_seed=5000),
         log_fn=lambda line: None)
-    return ev["read_comment_auc"]
+    return {k: v for k, v in ev.items() if k.endswith("_auc")}
 
 
 def golden_phase(names, work: str) -> None:
-    """Each model's golden recipe on cuda, held to its band of
-    tests/golden_bands.json (GOLDEN_EDGE_ONLY: to MIN_EDGE, band printed)."""
+    """Each model's golden recipe on cuda, every task's AUC held to its band
+    of tests/golden_bands.json (GOLDEN_EDGE_ONLY: to MIN_EDGE, band printed)."""
     with open(os.path.join(REPO, "tests", "golden_bands.json")) as f:
         bands = json.load(f)
     for name in names:
-        center = bands[name]["auc"]["read_comment_auc"]
-        width = bands[name]["band"]["read_comment_auc"]
         t0 = time.perf_counter()
-        auc = golden_auc(name, "cuda", os.path.join(work, f"golden_{name}"))
-        inside = abs(auc - center) <= width
-        print(f"golden {name} read_comment_auc {auc} (band {center} +- {width}: "
-              f"{'inside' if inside else 'outside'}), {time.perf_counter() - t0:.2f} s",
-              flush=True)
-        if name in GOLDEN_EDGE_ONLY:
-            if not auc >= MIN_EDGE:
-                raise AssertionError(f"golden {name} AUC {auc} below MIN_EDGE {MIN_EDGE}")
-        elif not inside:
-            raise AssertionError(f"golden {name} AUC {auc} outside {center} +- {width}")
+        aucs = golden_auc(name, "cuda", os.path.join(work, f"golden_{name}"))
+        if set(aucs) != set(bands[name]["auc"]):
+            raise AssertionError(f"golden {name}: tasks {sorted(aucs)}, bands for "
+                                 f"{sorted(bands[name]['auc'])}")
+        for key, auc in sorted(aucs.items()):
+            center, width = bands[name]["auc"][key], bands[name]["band"][key]
+            inside = abs(auc - center) <= width
+            print(f"golden {name} {key} {auc} (band {center} +- {width}: "
+                  f"{'inside' if inside else 'outside'}"
+                  f"{f'; gated on MIN_EDGE {MIN_EDGE}' if name in GOLDEN_EDGE_ONLY else ''})",
+                  flush=True)
+            if name in GOLDEN_EDGE_ONLY:
+                if not auc >= MIN_EDGE:
+                    raise AssertionError(f"golden {name} {key} {auc} below MIN_EDGE {MIN_EDGE}")
+            elif not inside:
+                raise AssertionError(f"golden {name} {key} {auc} outside {center} +- {width}")
+        print(f"golden {name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 BST_REPLACES = {"forward": "recalgorithm_tpu/ops/pallas/bst_attention.py:52",
@@ -805,9 +842,10 @@ def step_vs_cpu(name: str, best_dir: str, zero: set[str], **overrides) -> None:
 
 
 def train_step_profile(name: str, best_dir: str, card: str, kind: str,
-                       kernel: str | None) -> None:
+                       kernel: str | None, iters: int = STEP_ITERS) -> dict:
     """``name``'s train step at the config defaults from the weights of
-    ``best_dir``, profiled (``profile_train_step``) and printed."""
+    ``best_dir``, profiled (``profile_train_step``, ``iters`` steps a
+    measurement) and printed; returns the profile."""
     from recalgorithm_tpu_torch import convert
     from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
     from recalgorithm_tpu_torch.features.schema import wechat_schema
@@ -817,15 +855,17 @@ def train_step_profile(name: str, best_dir: str, card: str, kind: str,
     schema = wechat_schema(gen.vocab_sizes())
     tr = make_trainer(name, schema, convert.load_export(best_dir), get_model(name)[0](),
                       "cuda", best_dir)
-    prof = profile_train_step(tr, [gen.batch(BST_BATCH, 10 + i) for i in range(4)], kernel)
+    prof = profile_train_step(tr, [gen.batch(BST_BATCH, 10 + i) for i in range(4)], kernel,
+                              iters)
     print(f"{name} train step on {kind} ({card}), B={BST_BATCH}, config defaults: "
-          f"{prof['step_ms']} ms a step (CUDA events over {STEP_ITERS} steps back to "
+          f"{prof['step_ms']} ms a step (CUDA events over {iters} steps back to "
           f"back; {BST_BATCH / prof['step_ms'] * 1e3:.0f} ex/s), host wall of a "
           f"synchronized step {prof['wall_ms']} ms (median), device busy "
           f"{prof['busy_ms']} ms, idle share {prof['idle_share']:.4f}, "
           f"{prof['device_ops_per_step']:.0f} kernels+copies per step")
     for kname, ms in prof["top"]:
         print(f"    {ms:9.5f} ms  {kname[:100]}")
+    return prof
 
 
 def step_phase(name: str, best_dir: str, capture_module, zero: set[str], card: str,
@@ -999,12 +1039,13 @@ def train_and_resume(name: str, model_dir: str, layers: int) -> tuple[dict, str]
     return {k: counts[k] for k in BST_KERNELS}, best_dir
 
 
-def zoo_phase(work: str, gen) -> dict[str, str]:
-    """Each of ZOO_MODELS (config defaults, real tables) trains
-    ZOO_TRAIN_STEPS steps at B=4096 through cli.main on cuda with a final
-    eval and predictions; its best export predicted by Predictor on cuda is
-    held to the CPU within TOL.  These paths run no hand kernel.  Returns
-    each model's best export directory."""
+def zoo_phase(work: str, gen, names=ZOO_MODELS, extra=None) -> dict[str, tuple[dict, str]]:
+    """Each of ``names`` (config defaults, real tables) trains
+    ZOO_TRAIN_STEPS steps at B=4096 through cli.main on cuda (with the
+    flags ``extra`` gives a model) with a final eval and predictions (one
+    column a task); its best export predicted by Predictor on cuda is held
+    to the CPU within TOL, every task.  These paths run no hand kernel.
+    Returns each model's final eval and best export directory."""
     from recalgorithm_tpu_torch.cli.main import EVAL_BATCHES
     from recalgorithm_tpu_torch.features.schema import wechat_schema
     from recalgorithm_tpu_torch.models import get_model
@@ -1012,32 +1053,36 @@ def zoo_phase(work: str, gen) -> dict[str, str]:
 
     schema = wechat_schema(gen.vocab_sizes())
     batch = gen.batch(ZOO_PREDICT_BATCH, 5)
-    best_dirs = {}
-    for name in ZOO_MODELS:
+    runs = {}
+    for name in names:
         t0 = time.perf_counter()
         model_dir = os.path.join(work, name)
         zero_counts()
-        final = train_cli(name, model_dir, ZOO_TRAIN_STEPS)
+        final = train_cli(name, model_dir, ZOO_TRAIN_STEPS, (extra or {}).get(name, ()))
         counts = kernel_counts()
         if any(counts.values()):
             raise AssertionError(f"{name} launched hand kernels it does not use: {counts}")
         if not final or not all(math.isfinite(x) for x in final.values()):
             raise AssertionError(f"{name}: final eval {final}")
-        with open(os.path.join(model_dir, "predictions.csv")) as f:
-            n_rows = sum(1 for _ in f) - 1
-        if n_rows != EVAL_BATCHES * BST_BATCH:
-            raise AssertionError(f"{name} predictions.csv: {n_rows} rows")
-        best_dir = best_dirs[name] = Predictor.latest_best(model_dir)
         cfg_cls, model_cls = get_model(name)
-        got = Predictor(model_cls(cfg_cls(), schema), best_dir,
-                        device="cuda").predict_batch(batch)["read_comment"]
-        want = Predictor(model_cls(cfg_cls(), schema), best_dir,
-                         device="cpu").predict_batch(batch)["read_comment"]
-        err = check_close(f"{name} export on cuda vs CPU", got, want)
+        tasks = cfg_cls().task_names or (schema.labels[0],)
+        with open(os.path.join(model_dir, "predictions.csv")) as f:
+            rows = list(csv.reader(f))
+        if rows[0] != [f"{t}_probabilities" for t in tasks] or \
+                len(rows) - 1 != EVAL_BATCHES * BST_BATCH:
+            raise AssertionError(f"{name} predictions.csv: header {rows[0]}, {len(rows) - 1} rows")
+        best_dir = Predictor.latest_best(model_dir)
+        runs[name] = (final, best_dir)
+        got = Predictor(model_cls(cfg_cls(), schema), best_dir, device="cuda").predict_batch(batch)
+        want = Predictor(model_cls(cfg_cls(), schema), best_dir, device="cpu").predict_batch(batch)
+        if set(got) != set(tasks):
+            raise AssertionError(f"{name}: Predictor tasks {sorted(got)}, want {tasks}")
+        err = max(check_close(f"{name} {t} export on cuda vs CPU", got[t], want[t])
+                  for t in tasks)
         print(f"{name}: best export {os.path.basename(best_dir)}; Predictor B="
-              f"{ZOO_PREDICT_BATCH} on cuda vs CPU max abs err {err:.3e}; "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
-    return best_dirs
+              f"{ZOO_PREDICT_BATCH} on cuda vs CPU, {len(tasks)} task(s), max abs err "
+              f"{err:.3e}; {time.perf_counter() - t0:.2f} s", flush=True)
+    return runs
 
 
 def token_tables(sizes: dict[str, int]) -> dict[str, np.ndarray]:
@@ -1552,6 +1597,192 @@ def artifacts_phase(work: str, gen, din_export: str, bst_export: str, wd_export:
             "HTTP artifacts": http_counts, "cli.score": score_counts}
 
 
+def lazy_adam_untouched(best_dir: str) -> None:
+    """One DIEN train step on cuda (config defaults, LazyAdam): every element
+    whose gradient is 0, and so every table row the batch did not read, is
+    bitwise what it was before the step."""
+    schema, weights, cfg, hb = step_setup("DIEN", best_dir)
+    tr = make_trainer("DIEN", schema, weights, cfg, "cuda", best_dir)
+    # the batch columns each table is read with
+    reads = defaultdict(list)
+    for key, vocab, _ in tr.model.embedder.fields + [("feedid", "feedid", ""), (SEQ, "feedid", "")]:
+        reads[f"embedder.embed.tables.{vocab}"].append(hb[key].reshape(-1))
+    before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    tr.train_step(hb)
+    untouched_rows = moved = 0
+    for n, p in tr.model.named_parameters():
+        zero = p.grad == 0
+        if not torch.equal(p.detach()[zero], before[n][zero]):
+            raise AssertionError(f"LazyAdam moved elements of {n} whose gradient is 0")
+        moved += int((p.detach() != before[n]).sum())
+        if n in reads:
+            unread = torch.ones(p.shape[0], dtype=torch.bool)
+            unread[np.concatenate(reads[n])] = False
+            unread = unread.to(p.device)
+            if not bool(zero[unread].all()):
+                raise AssertionError(f"{n}: a row the batch did not read has a gradient")
+            untouched_rows += int(unread.sum())
+    print(f"DIEN LazyAdam step on cuda: {untouched_rows} table rows the batch did not read "
+          f"and every element with a 0 gradient bitwise unchanged; {moved} elements moved")
+
+
+def plain_artifact_check(name: str, export_dir: str, schema, gen, work: str) -> None:
+    """``name``'s export (a model without hand kernels) exported on cuda at
+    ARTIFACT_BATCH and served by HLOPredictor on cuda: every task equal to
+    the live Predictor on cuda within TOL, no hand kernel launched."""
+    from recalgorithm_tpu_torch.models import get_model
+    from recalgorithm_tpu_torch.serving.predictor import Predictor
+
+    cfg_cls, model_cls = get_model(name)
+    live = Predictor(model_cls(cfg_cls(), schema), export_dir, device="cuda")
+    pred = export_on_cuda(live, os.path.join(work, f"{name}.pt2"), False)
+    zero_counts()
+    batches = artifact_batches(gen, ARTIFACT_BATCHES)
+    got = [pred.predict_batch(hb) for hb in batches]
+    if any(kernel_counts().values()):
+        raise AssertionError(f"the {name} artifact launched hand kernels: {kernel_counts()}")
+    want = [live.predict_batch(hb) for hb in batches]
+    tasks = sorted(want[0])
+    if sorted(got[0]) != tasks:
+        raise AssertionError(f"{name} artifact outputs {sorted(got[0])}, live {tasks}")
+    err = max(check_close(f"{name} artifact {t} vs the live Predictor", g[t], w[t])
+              for g, w in zip(got, want) for t in tasks)
+    print(f"  {name} artifact: outputs {tasks}; {ARTIFACT_BATCHES} batches of {ARTIFACT_BATCH} "
+          f"on cuda vs the live Predictor on cuda max abs err {err:.3e}; 0 hand-kernel launches",
+          flush=True)
+
+
+def topk_vs_cpu(name: str, gpu: tuple, cpu: tuple, k: int) -> int:
+    """A top-(k+1) on cuda (scores, ids) against its CPU twin on the same
+    inputs, over the first k: every score within TOPK_TIE, and each row the
+    same ids, or another set only where the CPU's k-th and (k+1)-th scores
+    tie within TOPK_TIE (the rounding of the two devices' f32 sums).
+    Returns the rows with the same ids in the same order."""
+    (s_gpu, i_gpu), (s_cpu, i_cpu) = ([x.cpu().numpy() for x in r] for r in (gpu, cpu))
+    same = (i_gpu[:, :k] == i_cpu[:, :k]).all(axis=1)
+    sets = np.array([set(a) == set(b) for a, b in zip(i_gpu[:, :k], i_cpu[:, :k])])
+    tie = s_cpu[:, k - 1] - s_cpu[:, k] <= TOPK_TIE
+    err = float(np.abs(s_gpu[:, :k] - s_cpu[:, :k]).max())
+    if not (err <= TOPK_TIE and (sets | tie).all()):
+        raise AssertionError(f"{name} on cuda is not its CPU twin's beyond ties: scores within "
+                             f"{err}, {int((~(sets | tie)).sum())} rows another set")
+    return int(same.sum())
+
+
+def quantized_overlap(exact, quant, users, k: int) -> float:
+    """The mean share of each user's exact f32 top-k that the int8 corpus's
+    top-k finds (the measure of tests/test_retrieval.py)."""
+    ids_e, _ = exact.retrieve(users, k)
+    ids_q, _ = quant.retrieve(users, k)
+    return float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ids_e, ids_q)]))
+
+
+def retrieval_phase(best_dir: str, schema, recall: float) -> None:
+    """TwoTower on cuda.  Full width (``best_dir``, the item corpus of
+    cli.main's eval split): brute_force_top_k and quantized_top_k against
+    their CPU twins on the same vectors (``topk_vs_cpu``); the int8 corpus's
+    overlap with the exact top-k at k = 10 and RECALL_K, with the spread of
+    the scores it has to resolve; cli.main's recall beside its random
+    baseline.  The floor: tests/test_retrieval.py's own case (8-wide towers
+    from a seed, the seed-7 stream at vocab scale 0.002, 4 corpus batches
+    of 32, k = 10) on cuda, overlap at least QUANTIZED_OVERLAP."""
+    from recalgorithm_tpu_torch.cli.main import EVAL_BATCHES, EVAL_START_SEED
+    from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.models.two_tower import TwoTower, TwoTowerConfig
+    from recalgorithm_tpu_torch.serving.predictor import Predictor
+    from recalgorithm_tpu_torch.serving.retrieval import (
+        Retriever,
+        brute_force_top_k,
+        quantized_top_k,
+    )
+
+    # cli.main's eval split: its default seed, B=4096
+    gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=42, vocab_scale=1.0))
+    evals = list(gen.batches(BST_BATCH, EVAL_BATCHES, start_seed=EVAL_START_SEED))
+    model = Predictor(TwoTower(TwoTowerConfig(), schema), best_dir, device="cuda").model
+    t0 = time.perf_counter()
+    exact = Retriever(model, "cuda")
+    n = exact.build_corpus(evals)
+    quant = Retriever(model, "cuda", quantize_corpus=True)
+    quant.build_corpus(evals)
+    build_s = time.perf_counter() - t0
+    u = exact._embed(model.user_embedding, evals[0])[:TWIN_USERS]
+    k = RECALL_K
+    same = topk_vs_cpu("brute_force_top_k", brute_force_top_k(u, exact.corpus, k + 1),
+                       brute_force_top_k(u.cpu(), exact.corpus.cpu(), k + 1), k)
+    q_args = (quant.corpus_q, quant.corpus_scale, k + 1)
+    q_same = topk_vs_cpu("quantized_top_k", quantized_top_k(u, *q_args),
+                         quantized_top_k(u.cpu(), *(x.cpu() for x in q_args[:2]), k + 1), k)
+    scores = u @ exact.corpus.T
+    top = torch.topk(scores, k + 1, dim=-1).values
+    spread = float(scores.std(dim=1).mean())
+    gap = float((top[:, k - 1] - top[:, k]).mean())
+    overlaps = {kk: quantized_overlap(exact, quant, evals[0], kk) for kk in (10, k)}
+    print(f"TwoTower retrieval on cuda, full width: corpus {n} items from the {EVAL_BATCHES} "
+          f"eval batches (f32 and int8 built in {build_s:.2f} s); top-{k} of {len(u)} users "
+          f"on cuda vs the CPU twin, same ids in the same order: brute_force_top_k {same}, "
+          f"quantized_top_k {q_same} rows (every other row a tie within {TOPK_TIE}); int8 "
+          f"overlap with the exact top-k {overlaps} (not gated: a user's scores spread "
+          f"{spread:.5f} (std), the top-{k} boundary gap {gap:.2e} on average); "
+          f"cli.main recall_at_{k} {recall:.4f}, random {k / n:.4f}", flush=True)
+
+    tgen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=7, vocab_scale=0.002))
+    tschema = wechat_schema(tgen.vocab_sizes())
+    tmodel = TwoTower(TwoTowerConfig(hidden_units=(32,), output_dim=8), tschema,
+                      torch.Generator().manual_seed(0))
+    texact, tquant = Retriever(tmodel, "cuda"), Retriever(tmodel, "cuda", quantize_corpus=True)
+    for r in (texact, tquant):
+        r.build_corpus(tgen.batch(32, s) for s in (1, 2, 3, 4))
+    overlap = quantized_overlap(texact, tquant, tgen.batch(32, 0), 10)
+    print(f"tests/test_retrieval.py's int8 case on cuda: overlap {overlap:.4f} "
+          f"(floor {QUANTIZED_OVERLAP})", flush=True)
+    if overlap < QUANTIZED_OVERLAP:
+        raise AssertionError(f"quantized_top_k overlap {overlap} under {QUANTIZED_OVERLAP}")
+
+
+def multitask_phase(work: str, gen, card: str, kind: str) -> None:
+    """Phase 15: the multi-task family, DIEN and TwoTower at full width on
+    cuda.  No hand kernel runs on these paths."""
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+
+    t_phase = time.perf_counter()
+    schema = wechat_schema(gen.vocab_sizes())
+    runs = zoo_phase(work, gen, NEW_MODELS,
+                     {"TwoTower": ["--eval_recall_at", str(RECALL_K)]})
+    for name, (final, _) in runs.items():
+        tasks = [k for k in final if k.endswith("_auc") and not k.endswith("exact_auc")]
+        print(f"  {name} final eval AUCs: " + ", ".join(f"{t} {final[t]:.4f}" for t in tasks))
+    recall = runs["TwoTower"][0].get(f"recall_at_{RECALL_K}")
+    if recall is None or "ctcvr_auc" not in runs["ESMM"][0]:
+        raise AssertionError("cli.main reported no recall_at_K for TwoTower or no ctcvr_auc "
+                             "for ESMM")
+    dirs = {name: run[1] for name, run in runs.items()}
+    times = {"cli.main": time.perf_counter() - t_phase}
+
+    def timed(part, fn, *args, **kw):
+        t0 = time.perf_counter()
+        fn(*args, **kw)
+        times[part] = times.get(part, 0.0) + time.perf_counter() - t0
+
+    # no tower BN, as DeepFM's step: a bias in front of a train-mode BN has a
+    # rounding-noise gradient; DIEN's Dice keeps its own BN
+    timed("steps vs CPU", step_vs_cpu, "PLE", dirs["PLE"], set(), batch_norm=False)
+    timed("steps vs CPU", step_vs_cpu, "DIEN", dirs["DIEN"], set(), batch_norm=False)
+    timed("LazyAdam", lazy_adam_untouched, dirs["DIEN"])
+    for name in ("PLE", "DIEN"):
+        timed("profiles", train_step_profile, name, dirs[name], card, kind, kernel=None,
+              iters=NEW_PROFILE_ITERS)
+    timed("retrieval", retrieval_phase, dirs["TwoTower"], schema, recall)
+    root = os.path.join(work, "artifacts_new")
+    os.makedirs(root)
+    for name in ("MMOE", "TwoTower"):
+        timed("artifacts", plain_artifact_check, name, dirs[name], schema, gen, root)
+    timed("goldens", golden_phase, NEW_MODELS, work)
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s: "
+          + ", ".join(f"{part} {s:.1f} s" for part, s in times.items()))
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1899,7 +2130,7 @@ def main() -> int:
     phase(f"12. {', '.join(ZOO_MODELS)} at full width on cuda: {ZOO_TRAIN_STEPS} steps "
           "through cli.main, the best export against the CPU; a DeepFM train step vs "
           f"the CPU; {' and '.join(ZOO_PROFILED)} train steps profiled; the golden recipes")
-    zoo_dirs = zoo_phase(work, gen)
+    zoo_dirs = {name: run[1] for name, run in zoo_phase(work, gen).items()}
     # no tower BN: a bias in front of a train-mode BN has a rounding-noise
     # gradient (PNN's case in tests/test_torch_train.py); nothing else is 0
     step_vs_cpu("DeepFM", zoo_dirs["DeepFM"], set(), batch_norm=False)
@@ -1918,6 +2149,16 @@ def main() -> int:
           "phase 13's eval split; the artifact's batch time against the live Predictor")
     artifact_counts = artifacts_phase(work, gen, export_dir, best_dir, zoo_dirs["WideAndDeep"],
                                       scoring, card)
+
+    phase("15. main path 6: the multi-task family, DIEN and TwoTower at full width on cuda: "
+          f"{', '.join(NEW_MODELS)} through cli.main ({ZOO_TRAIN_STEPS} steps, TwoTower with "
+          f"--eval_recall_at {RECALL_K}); PLE and DIEN train steps vs the f64 CPU step, the "
+          "LazyAdam step's untouched rows, both steps profiled; retrieval; MMOE and TwoTower "
+          "artifacts; the golden recipes")
+    zero_counts()
+    multitask_phase(work, gen, card, kind)
+    if any(kernel_counts().values()):
+        raise AssertionError(f"phase 15 launched hand kernels: {kernel_counts()}")
 
     din_by_path = {"serving": serve_launches,
                    "DIN stream": file_counts["DIN stream"]["din_attention"],

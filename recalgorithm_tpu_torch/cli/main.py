@@ -18,8 +18,10 @@ After training, ``--export_stablehlo <path>`` writes a serving artifact
 (serving/export.py: a ``torch.export`` program, int8 tables with
 ``--export_quantized``) at ``--serving_batch_size`` rows.  A model class
 with a ``wide_param_predicate`` (Wide&Deep) trains with the dual FTRL/deep
-optimizer from its config.  Not ported yet: the mesh flags and
-``--eval_recall_at``.
+optimizer from its config.  ``--eval_recall_at K`` builds, after training,
+the item corpus of a retrieval model (one with ``item_embedding``: TwoTower)
+from the eval split and reports ``recall_at_K`` with the final eval.  Not
+ported yet: the mesh flags.
 
 After training: the final eval metrics are printed, and ``predictions.csv``
 holds per-task probabilities in the JAX CLI's column layout (reference
@@ -90,6 +92,10 @@ def build_parser(model_name: str | None = None) -> argparse.ArgumentParser:
                         help="accumulate k micro-batch gradients before each "
                              "optimizer step (effective batch = k x batch_size)")
     parser.add_argument("--predictions_csv", default="predictions.csv")
+    parser.add_argument("--eval_recall_at", type=int, default=0,
+                        help="for retrieval models (TwoTower): after training, "
+                        "build the item corpus from the eval split and report "
+                        "Recall@K at this K")
     parser.add_argument("--export_stablehlo", default=None,
                         help="after training, write a serving artifact (ids -> "
                              "probabilities; a torch.export program, the JAX CLI's flag "
@@ -209,6 +215,17 @@ def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
         final_eval = trainer.train_and_evaluate(train_iter, eval_fn)
     for key in sorted(final_eval):
         print(f"{key}: {final_eval[key]}")
+
+    # ---- retrieval quality (TwoTower): offline Recall@K over the eval split
+    if args.eval_recall_at and hasattr(trainer.model, "item_embedding"):
+        from recalgorithm_tpu_torch.serving.retrieval import Retriever
+
+        retr = Retriever(trainer.model, device)
+        n_corpus = retr.build_corpus(eval_fn())
+        k = args.eval_recall_at
+        final_eval[f"recall_at_{k}"] = retr.recall_at_k(eval_fn(), k=k)
+        print(f"recall_at_{k}: {final_eval[f'recall_at_{k}']:.4f} (corpus {n_corpus}, "
+              f"random ~{min(k / n_corpus, 1.0):.4f})")
 
     # ---- predictions.csv (reference wide_and_deep.py:370-375)
     eval_ids: dict[str, np.ndarray] = {}

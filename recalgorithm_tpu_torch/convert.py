@@ -7,13 +7,17 @@ mean``, ...).  The torch modules carry the same names, apart from these
 rules, which :func:`from_flax` and :func:`to_flax` apply both ways:
 
   * flax ``Dense`` kernels are ``(in, out)``; a torch ``Linear.weight`` is
-    their transpose.  Only a leaf named ``weight`` is transposed: raw
-    parameters keep their flax names and layout (BST's ``w_q``/``w_k``/
-    ``w_v`` (H, d, d), ``w_o`` (H*d, d), ``position_embedding``);
+    their transpose.  Only a 2-D ``kernel`` becomes a transposed ``weight``:
+    raw parameters keep their flax names and layout (BST's ``w_q``/``w_k``/
+    ``w_v`` (H, d, d), ``w_o`` (H*d, d), ``position_embedding``, and the
+    (E, in, H) ``kernel`` of an expert group, which ``.T`` would turn
+    inside out);
   * BatchNorm and LayerNorm ``scale``/``bias`` -> ``weight``/``bias`` (a
     1-D ``weight`` goes back to ``scale``), ``mean``/``var`` ->
     ``running_mean``/``running_var``; torch's ``num_batches_tracked``
-    has no flax counterpart;
+    has no flax counterpart.  Any other ``batch_stats`` leaf (TwoTower's
+    ``feedid_freq``) is a buffer of the same name, and every torch buffer
+    goes back to ``batch_stats``;
   * ``FieldEmbedder_0`` -> ``embedder``, Dice's ``BatchNorm_0`` -> ``bn``,
     and the tables of an ``embed`` collection (``embed_w`` for
     FirstOrderLogit's, ``wide_embed_w`` for W&D's wide cross) sit in its
@@ -81,10 +85,10 @@ def from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
                 mods.append("tables")
             leaf = path[-1]
             if collection == "batch_stats":
-                leaf = _STATS[leaf]
+                leaf = _STATS.get(leaf, leaf)
                 if leaf == "running_mean":
                     sd[".".join(mods + ["num_batches_tracked"])] = torch.tensor(0)
-            elif leaf == "kernel":
+            elif leaf == "kernel" and arr.ndim == 2:
                 leaf, arr = "weight", arr.T
             elif leaf == "scale":
                 leaf = "weight"
@@ -95,6 +99,7 @@ def from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
 def to_flax(model: nn.Module) -> dict:
     """The inverse of :func:`from_flax`: a nested dict of numpy arrays."""
     flat: dict[tuple, np.ndarray] = {}
+    buffers = {name for name, _ in model.named_buffers()}
     for key, t in model.state_dict().items():
         *mods, leaf = key.split(".")
         if leaf == "num_batches_tracked":
@@ -103,8 +108,8 @@ def to_flax(model: nn.Module) -> dict:
         if len(mods) >= 2 and mods[-2] in _TABLE_COLLECTIONS and mods[-1] == "tables":
             mods = mods[:-1]
         path = tuple(_MODULES_BACK.get(m, m) for m in mods)
-        if leaf in _STATS_BACK:
-            flat[("batch_stats",) + path + (_STATS_BACK[leaf],)] = arr
+        if key in buffers:
+            flat[("batch_stats",) + path + (_STATS_BACK.get(leaf, leaf),)] = arr
             continue
         if leaf == "weight" and arr.ndim == 1:  # BatchNorm / LayerNorm
             leaf = "scale"

@@ -135,10 +135,14 @@ class Trainer:
                 for k, v in batch.items() if k in self._inputs}
 
     def _task_label(self, batch, task: str) -> torch.Tensor:
+        """A task's label column; a model may derive a joint label (ESMM's
+        ``ctcvr``) in its ``derived_label``."""
         label_idx = {name: i for i, name in enumerate(self.model.schema.labels)}
-        if task not in label_idx:
-            raise KeyError(f"task {task!r} has no label column")
-        return batch["labels"][:, label_idx[task]]
+        if task in label_idx:
+            return batch["labels"][:, label_idx[task]]
+        if hasattr(self.model, "derived_label"):
+            return self.model.derived_label(task, batch)
+        raise KeyError(f"task {task!r} has no label column or derivation")
 
     def _loss_and_logits(self, batch) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         logits, reg = self.model(batch)

@@ -1,8 +1,8 @@
 """Optimizers with reference parity, and learning-rate schedules.
 
 Counterpart of ``recalgorithm_tpu/train/optimizers.py``: ``build`` for
-adam, adagrad, rmsprop, sgd and ftrl, ``make_schedule``, and the Wide&Deep
-dual optimizer ``dual_wide_deep``.  LazyAdam waits for DIEN.
+adam, adagrad, rmsprop, sgd, ftrl and lazyadam, ``make_schedule``, and the
+Wide&Deep dual optimizer ``dual_wide_deep``.
 
 ``torch.optim.Adam`` computes optax's Adam update:
 ``lr * m_hat / (sqrt(v_hat) + eps)`` with bias-corrected moments, and
@@ -10,7 +10,8 @@ dual optimizer ``dual_wide_deep``.  LazyAdam waits for DIEN.
 are not torch's: optax puts eps inside the square root (torch outside), and
 its RMSProp decays by 0.9 (torch 0.99), so :class:`Adagrad` and
 :class:`RMSProp` below compute optax's formulas.  :class:`Ftrl` is the JAX
-package's own FTRL-proximal (TF1 ``FtrlOptimizer`` semantics).  A schedule is a function
+package's own FTRL-proximal (TF1 ``FtrlOptimizer`` semantics), and
+:class:`LazyAdam` its ``lazy_adam`` (TF contrib's LazyAdamOptimizer).  A schedule is a function
 of the 0-based count of updates already applied, as
 ``optax.scale_by_schedule`` evaluates it; :class:`Optimizer` sets the rate
 before each step.
@@ -154,6 +155,47 @@ class Ftrl(torch.optim.Optimizer):
                                     torch.zeros_like(z)))
 
 
+class LazyAdam(torch.optim.Optimizer):
+    """The JAX package's ``lazy_adam`` (TF contrib LazyAdamOptimizer, DIEN's
+    optimizer, reference dien.py:328-329): the moments and the parameter
+    move only where the gradient is nonzero,
+
+        m = b1 m + (1 - b1) g,  v = b2 v + (1 - b2) g^2,
+        p -= lr * (m / (1 - b1^n)) / (sqrt(v / (1 - b2^n)) + eps)   where g != 0,
+
+    with the bias correction from the scalar GLOBAL count n of updates
+    (``count`` in each param group, so it checkpoints with the groups), not
+    a per-coordinate one.  A parameter with no gradient in a step (``None``)
+    counts as an all-zero gradient: it does not move, and n still advances.
+    The correction factors are f32, as the JAX update computes them."""
+
+    def __init__(self, params, lr: float, betas: tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, count=0))
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            group["count"] += 1
+            n = torch.tensor(float(group["count"]), dtype=torch.float32)
+            c1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** n)
+            c2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** n)
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["mu"] = torch.zeros_like(p)
+                    state["nu"] = torch.zeros_like(p)
+                g, mu, nu = p.grad, state["mu"], state["nu"]
+                hit = g != 0
+                mu.copy_(torch.where(hit, b1 * mu + (1 - b1) * g, mu))
+                nu.copy_(torch.where(hit, b2 * nu + (1 - b2) * g * g, nu))
+                s = -group["lr"] * (mu / c1) / (torch.sqrt(nu / c2) + group["eps"])
+                p.add_(torch.where(hit, s, torch.zeros_like(s)))
+
+
 class Optimizer:
     """A torch optimizer stepped as optax steps its transformation: the
     scheduled rate of update ``count`` is set before the update."""
@@ -200,9 +242,7 @@ def build(name: str, learning_rate: float | Schedule
             raise ValueError("ftrl takes a constant learning rate")
         make = Ftrl
     elif name == "lazyadam":
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (adam, adagrad, rmsprop, sgd and "
-            "ftrl are)")
+        make = LazyAdam
     else:
         raise ValueError(f"unknown optimizer {name!r}")
     return lambda params: Optimizer(make(params, schedule(0)), schedule)

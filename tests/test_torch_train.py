@@ -181,8 +181,12 @@ def test_dropout_is_flax_dropout_on_its_generator():
 
 
 def test_other_optimizers_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        toptimizers.build("lazyadam", 0.1)
+    """Every optimizer name of the JAX package's ``build`` is ported (LazyAdam
+    last, its steps in tests/test_torch_dien.py); an unknown name raises."""
+    p = torch.nn.Parameter(torch.zeros(2))
+    assert isinstance(toptimizers.build("lazyadam", 0.1)([p]).opt, toptimizers.LazyAdam)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        toptimizers.build("adamax", 0.1)
 
 
 # ---------------------------------------------------------------------------

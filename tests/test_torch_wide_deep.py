@@ -92,7 +92,11 @@ def test_convert_round_trips_with_the_wide_table(data):
 
 
 def test_registry_has_21_names():
-    assert len(MODEL_REGISTRY) == 21
+    """Every name of the JAX registry is registered (27 with the multi-task
+    family, DIEN and TwoTower), the W&D alias on the same classes."""
+    from recalgorithm_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
+
+    assert set(MODEL_REGISTRY) == set(JAX_REGISTRY) and len(MODEL_REGISTRY) == 27
     assert MODEL_REGISTRY["WideAndDeep"] == MODEL_REGISTRY["WideAndDeepBuiltin"]
 
 

@@ -111,13 +111,20 @@ def schema_batch(schema, batch_size: int, seed: int) -> dict[str, np.ndarray]:
     return hb
 
 
-def jax_variables(jmodel, hb, seed):
+def jax_variables(jmodel, hb, seed, init_train=False):
     """The JAX init, with BN running statistics drawn away from 0 / 1 and
     every parameter that starts at zero (FirstOrderLogit's tables and bias,
     biases, FinalMLP's contexts, ...) drawn uniformly, so a parity run
-    reads it."""
+    reads it.  ``init_train``: initialise with ``train=True`` (and a
+    dropout stream), for a model that creates a parameter in train mode
+    only (DIEN's ``aux_project_matrix``)."""
     jb = {k: jnp.asarray(x) for k, x in hb.items()}
-    v = jax.device_get(jax.jit(lambda b: jmodel.init(jax.random.key(seed), b))(jb))
+    if init_train:
+        rngs = {"params": jax.random.key(seed), "dropout": jax.random.key(seed + 1)}
+        init = lambda b: jmodel.init(rngs, b, train=True)
+    else:
+        init = lambda b: jmodel.init(jax.random.key(seed), b)
+    v = jax.device_get(jax.jit(init)(jb))
     rng = np.random.default_rng(seed)
     stats = jax.tree.map(lambda x: rng.uniform(0.3, 3.0, x.shape).astype(np.float32),
                          v.get("batch_stats", {}))
@@ -127,11 +134,11 @@ def jax_variables(jmodel, hb, seed):
     return {"params": params, "batch_stats": stats}
 
 
-def check_matches_jax(jmodel, model, hb, seed=1):
+def check_matches_jax(jmodel, model, hb, seed=1, init_train=False):
     """Eval logits (running statistics), then train-mode logits, the
     regularisation losses, every parameter's gradient of mean(logits) + the
     losses, and the updated BN statistics, for every task."""
-    variables = jax_variables(jmodel, hb, seed)
+    variables = jax_variables(jmodel, hb, seed, init_train)
     jb = {k: jnp.asarray(x) for k, x in hb.items()}
 
     @jax.jit
@@ -185,7 +192,25 @@ def check_matches_jax(jmodel, model, hb, seed=1):
         np.testing.assert_allclose(got_stats[k], w, **TOL)
 
 
-def check_round_trips(jmodel, model, hb):
+def check_every_parameter_gets_a_gradient(model, hb, optimizer="adam"):
+    """The trainer's loss of a train-mode forward on ``hb`` reaches every
+    parameter.  The port's optimizers step after
+    ``zero_grad(set_to_none=True)`` and skip a parameter without a gradient,
+    where optax would still move it by its moments."""
+    from recalgorithm_tpu_torch.train import optimizers
+    from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    tasks = tuple(model.config.task_names) or (model.schema.labels[0],)
+    tr = Trainer(model, tasks, optimizers.build(optimizer, 1e-3),
+                 TrainerConfig(model_dir="unused"), device="cpu")
+    model.train()
+    loss, _ = tr._loss_and_logits(tr._put_batch(hb))
+    loss.backward()
+    missing = [n for n, p in model.named_parameters() if p.grad is None]
+    assert not missing, missing
+
+
+def check_round_trips(jmodel, model, hb, init_train=False):
     """``convert`` both ways, bit-exact: the port's weights through a flax
     tree and back, and the JAX init through the port and back."""
     with torch.no_grad():
@@ -200,7 +225,7 @@ def check_round_trips(jmodel, model, hb):
     for k, v in sd.items():
         assert back[k].dtype == v.dtype and torch.equal(back[k], v), k
 
-    variables = jax_variables(jmodel, hb, seed=2)
+    variables = jax_variables(jmodel, hb, seed=2, init_train=init_train)
     model.load_state_dict(convert.from_flax(variables))
     again, want = flat(convert.to_flax(model)), flat(variables)
     assert set(again) == set(want)

@@ -7,9 +7,9 @@ Each run keeps the data of the recipe's seed and varies the seed of the
 weights and the dropout stream: ``--package jax`` through
 ``golden_common.run_golden``, ``--package torch`` through
 ``chip_smoke.golden_auc`` (the port's copy of the recipe, on ``--device``).
-Prints each run's read_comment AUC, then each model's mean and standard
-deviation beside its band of tests/golden_bands.json: how often one draw
-lands outside the band that ``chip_smoke.py`` gates on.
+Prints each run's AUC of every task, then each model's mean and standard
+deviation of each task beside its band of tests/golden_bands.json: how
+often one draw lands outside the band that ``chip_smoke.py`` gates on.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ def main() -> None:
         from tests import golden_common
 
         def run(name, model_dir, seed):
-            return golden_common.run_golden(name, model_dir, seed=seed)["read_comment_auc"]
+            return golden_common.run_golden(name, model_dir, seed=seed)
     else:
         import chip_smoke
 
@@ -51,16 +51,19 @@ def main() -> None:
         bands = json.load(f)
     with tempfile.TemporaryDirectory() as work:
         for name in args.models:
-            aucs = []
+            runs = []
             for seed in range(args.seeds):
-                aucs.append(float(run(name, os.path.join(work, f"{name}_{seed}"), seed)))
-                print(f"{args.package} {name} seed {seed}: {aucs[-1]:.5f}", flush=True)
-            center = bands[name]["auc"]["read_comment_auc"]
-            width = bands[name]["band"]["read_comment_auc"]
-            outside = sum(abs(a - center) > width for a in aucs)
-            print(f"{args.package} {name}: mean {np.mean(aucs):.5f} std "
-                  f"{np.std(aucs, ddof=1):.5f} over {args.seeds} seeds; band {center} +- "
-                  f"{width}: {outside} outside", flush=True)
+                runs.append(run(name, os.path.join(work, f"{name}_{seed}"), seed))
+                print(f"{args.package} {name} seed {seed}: " + " ".join(
+                    f"{k} {float(v):.5f}" for k, v in sorted(runs[-1].items())), flush=True)
+            for key in sorted(runs[0]):
+                aucs = [float(r[key]) for r in runs]
+                center = bands[name]["auc"][key]
+                width = bands[name]["band"][key]
+                outside = sum(abs(a - center) > width for a in aucs)
+                print(f"{args.package} {name} {key}: mean {np.mean(aucs):.5f} std "
+                      f"{np.std(aucs, ddof=1):.5f} over {args.seeds} seeds; band {center} +- "
+                      f"{width}: {outside} outside", flush=True)
 
 
 if __name__ == "__main__":
