@@ -32,14 +32,15 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      eval and a checkpoint, then resumes once; predictions.csv and the best
      export are checked, and each BST kernel's launches against the steps and
      eval batches the run took;
-  8. one BST train step on cuda held against the same step on the CPU (the
-     loss against f32; every gradient against f64, allowing the f32 step's
-     own rounding, and for an embedding table rtol of the f64 sum of its
-     terms' magnitudes; on the batch rows with no relu input at a kink, where
-     rounding could change the branch: BST has no relu, and the rows kept
-     are printed); the BST kernels at that step's own inputs; the
-     train step's time (CUDA events, host wall), ex/s and device idle share
-     (torch.profiler);
+  8. one BST train step on cuda held against the same step on the CPU, on
+     weights that are the same in every run (a seeded init and a few Adam
+     steps on the CPU, repeatable_weights): the loss against f32; every
+     gradient against f64, allowing the f32 step's own rounding, and for an
+     embedding table rtol of the f64 sum of its terms' magnitudes; on the
+     batch rows with no relu input at a kink, where rounding could change
+     the branch: BST has no relu, and the rows kept are printed); the BST
+     kernels at that step's own inputs; the train step's time (CUDA events,
+     host wall), ex/s and device idle share (torch.profiler);
   9. the golden recipe of tests/golden_common.py for BST and DIN on the
      card, each eval AUC held to its band of tests/golden_bands.json;
  10. the BST export served over HTTP by build_server, every response held
@@ -108,7 +109,21 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      tests/test_retrieval.py's own case), Recall@50 beside its random baseline; MMOE
      (three tasks) and TwoTower (the logit) exported on cuda and held to their
      live Predictor; each golden recipe gated on every task's band (MIN_EDGE
-     for GOLDEN_EDGE_ONLY).  These paths launch no hand kernel.
+     for GOLDEN_EDGE_ONLY).  These paths launch no hand kernel;
+ 16. main path 7: the port as 2 processes sharing the one card over gloo
+     (NCCL refuses two ranks on one device; a subprocess a rank, each with a
+     hard time limit).  BST at full width, B=4096 (2048 rows a rank), its
+     tables row-sharded over the 2 ranks, phase 8's weights and batch: the
+     global loss and every gradient, gathered whole, held to the CPU step
+     under phase 8's gate; 8 Adam steps whose losses stay within rtol 1e-4
+     of the 1-process run's; each rank's BST-kernel launches exact; each
+     rank's step time and idle share (two ranks sharing one card).
+     cli.main on 2 processes from phase 13's checkpoint, whole-load and
+     --stream: predictions.csv holds the 62,000 eval rows once each in file
+     order, the exact AUC and GAUC within 1e-6 of the 1-process run from the
+     same checkpoint.  MMOE with 4 experts on a (data 1, model 2) mesh, 2
+     experts a rank: its step held to the CPU step.  sharded_top_k over the
+     2 ranks against brute_force_top_k on TwoTower's corpus, ties aside.
 
 Each main path's kernel launch counts are set to 0 just before it and read
 just after: a kernel of the path that never launched fails the run.  The
@@ -173,6 +188,11 @@ STEP_NOISE = 4
 # a relu input within this share of its call's max|x| of 0 may change sides
 # under the f32 rounding of either device (kink_free_rows)
 KINK_MARGIN = 1e-5
+# phase 8 (and 16) hold BST's train step on weights that are the same in
+# every run (repeatable_weights): a seeded init, then STEP_WEIGHT_STEPS Adam
+# steps on the CPU at B = STEP_WEIGHT_BATCH, so that the gate's verdict no
+# longer hangs on which weights phase 7's card training happened to reach
+STEP_WEIGHT_SEED, STEP_WEIGHT_STEPS, STEP_WEIGHT_BATCH = 8, 4, 1024
 # main path 2: cli.main trains full-width BST at B=4096, evals every
 # BST_EVAL_EVERY steps, then resumes to BST_RESUME_STEPS
 BST_BATCH = 4096
@@ -248,6 +268,23 @@ QUANTIZED_OVERLAP = 0.9
 TOPK_TIE = 1e-5
 NEW_PROFILE_ITERS = 4
 TWIN_USERS = 1024  # users whose top-k on cuda is held to the CPU twin's
+# phase 16: MESH_RANKS processes on the one card over gloo (NCCL refuses two
+# ranks on one device), each given MESH_RANK_TIMEOUT_S: BST's held step on
+# the tables row-sharded, then MESH_STEPS Adam steps whose global losses stay
+# within MESH_LOSS_RTOL of the 1-process run's (tests/test_torch_train.py's
+# trainer bar), then MESH_PROFILE_ITERS steps a measurement timed and
+# profiled on each rank; MMOE with MESH_EXPERTS experts on a (data 1, model
+# 2) mesh (3 experts would not divide); the exact AUC and GAUC of cli.main
+# on 2 processes within MESH_AUC_TOL of the 1-process run from the same
+# checkpoint
+MESH_RANKS = 2
+MESH_STEPS = 8
+MESH_PROFILE_ITERS = 5
+MESH_LOSS_RTOL = 1e-4
+MESH_EXPERTS = 4
+MESH_AUC_TOL = 1e-6
+MESH_RANK_TIMEOUT_S = 600
+MESH_BATCH_SEED = 20  # the synthetic batches of the MESH_STEPS steps
 KERNEL_OPS = {"DIN": "recalgorithm_torch.din_attention.default",
               "BST": "recalgorithm_torch.bst_mha_forward.default"}
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -723,11 +760,14 @@ def lookup_abs_sums(model):
         EmbeddingCollection._clip_gather = plain
 
 
-def make_trainer(name: str, schema, weights: dict, cfg, device: str, model_dir: str):
+def make_trainer(name: str, schema, weights: dict, cfg, device: str, model_dir: str,
+                 mesh=None, global_rows: int | None = None):
     """A Trainer of ``name`` at ``cfg`` (its optimizer and learning rate) on
-    ``device`` from ``weights``, an export's state dict; keys the model does
-    not have (a BN tower that ``cfg`` leaves out) are left out, and a key
-    the weights lack fails."""
+    ``device`` from ``weights``, an export's state dict (whole; sharded onto
+    ``mesh`` when one is given, whose train steps take ``global_rows`` rows
+    over all ranks); keys the model does not have (a BN tower
+    that ``cfg`` leaves out) are left out, and a key the weights lack
+    fails."""
     from recalgorithm_tpu_torch.models import get_model
     from recalgorithm_tpu_torch.train import optimizers
     from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig
@@ -739,7 +779,8 @@ def make_trainer(name: str, schema, weights: dict, cfg, device: str, model_dir: 
     model.load_state_dict({k: v for k, v in weights.items() if k in own})
     return Trainer(model, tuple(cfg.task_names) or (schema.labels[0],),
                    optimizers.build(cfg.optimizer, cfg.learning_rate),
-                   TrainerConfig(model_dir=os.path.join(model_dir, "unused")), device=device)
+                   TrainerConfig(model_dir=os.path.join(model_dir, "unused")), device=device,
+                   mesh=mesh, global_batch_size=global_rows)
 
 
 def kink_free_rows(model, batch) -> torch.Tensor:
@@ -775,6 +816,35 @@ def kink_free_rows(model, batch) -> torch.Tensor:
     return keep
 
 
+def repeatable_weights(name: str, out_dir: str) -> str:
+    """Weights of ``name`` (config defaults, real table sizes) that are the
+    same in every run: initialised from STEP_WEIGHT_SEED by a torch.Generator
+    on the CPU, then STEP_WEIGHT_STEPS Adam steps on the CPU (f32, dropout 0)
+    on the seeded stream, so that every gradient is a trained model's.
+    Written as an export; returns its directory."""
+    from recalgorithm_tpu_torch import convert
+    from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.models import get_model
+    from recalgorithm_tpu_torch.train import optimizers
+    from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=STEP_WEIGHT_SEED, vocab_scale=1.0))
+    cfg_cls, cls = get_model(name)
+    cfg = cfg_cls(dropout_rate=0.0)
+    model = cls(cfg, wechat_schema(gen.vocab_sizes()),
+                torch.Generator().manual_seed(STEP_WEIGHT_SEED))
+    tr = Trainer(model, tuple(cfg.task_names), optimizers.build(cfg.optimizer, cfg.learning_rate),
+                 TrainerConfig(model_dir=out_dir), device="cpu")
+    losses = [float(tr.train_step(hb)) for hb in gen.batches(STEP_WEIGHT_BATCH, STEP_WEIGHT_STEPS)]
+    export = convert.save_export(out_dir, tr.step, 0.0, tr.model)
+    print(f"{name}: repeatable weights from seed {STEP_WEIGHT_SEED} and {STEP_WEIGHT_STEPS} CPU "
+          f"Adam steps at B={STEP_WEIGHT_BATCH} (losses {losses}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return export
+
+
 def step_setup(name: str, best_dir: str, **overrides) -> tuple:
     """What the held train step of ``name`` starts from: the real-size
     schema, the weights of ``best_dir``, the config defaults with
@@ -790,55 +860,79 @@ def step_setup(name: str, best_dir: str, **overrides) -> tuple:
             get_model(name)[0](dropout_rate=0.0, **overrides), gen.batch(BST_BATCH, 1))
 
 
-def step_vs_cpu(name: str, best_dir: str, zero: set[str], **overrides) -> None:
-    """One full-width train step of ``name`` (loss and every gradient) on
-    cuda (``step_setup``), held against the same step on the CPU: the loss
-    against the f32 step, each gradient against the f64 step
-    (``step_gradient_ratios``; ``zero``: the parameters whose true gradient
-    is 0).  The batch's rows are ``kink_free_rows`` of the f64 model."""
+def one_step(tr, batch, f64: bool = False) -> tuple[float, dict, dict]:
+    """One train-mode forward and backward of ``tr``'s model on ``batch`` (in
+    f64 with ``f64``): the loss, every gradient (f64, on the CPU) and the
+    tables' terms' magnitudes (``lookup_abs_sums``)."""
+    if f64:
+        tr.model.double()
+        batch = {k: x.double() if x.is_floating_point() else x for k, x in batch.items()}
+    tr.model.train()
+    with lookup_abs_sums(tr.model) as sums:
+        loss, _ = tr._loss_and_logits(batch)
+        loss.backward()
+    return float(loss.detach()), {n: p.grad.double().cpu()
+                                  for n, p in tr.model.named_parameters()}, sums
+
+
+def step_reference(name: str, best_dir: str, **overrides) -> dict:
+    """What a train step of ``name`` (``step_setup``) is held to: the batch's
+    ``kink_free_rows`` of the f64 model, the f32 CPU step's loss and
+    gradients, and the f64 CPU step's gradients and the tables' term
+    magnitudes."""
     schema, weights, cfg, hb = step_setup(name, best_dir, **overrides)
-
-    def put(tr, hb, f64):
-        batch = tr._put_batch(hb)
-        if f64:
-            tr.model.double()
-            batch = {k: x.double() if x.is_floating_point() else x for k, x in batch.items()}
-        return batch
-
     tr = make_trainer(name, schema, weights, cfg, "cpu", best_dir)
-    keep = kink_free_rows(tr.model, put(tr, hb, True)).numpy()
+    batch = {k: x.double() if x.is_floating_point() else x
+             for k, x in tr._put_batch(hb).items()}
+    keep = kink_free_rows(tr.model.double(), batch).numpy()
     hb = {k: x[keep] for k, x in hb.items()}
+    tr = make_trainer(name, schema, weights, cfg, "cpu", best_dir)
+    cpu_loss, cpu_grads, _ = one_step(tr, tr._put_batch(hb))
+    tr = make_trainer(name, schema, weights, cfg, "cpu", best_dir)
+    _, exact, abs_sums = one_step(tr, tr._put_batch(hb), f64=True)
+    return dict(schema=schema, weights=weights, cfg=cfg, hb=hb, keep=keep, cpu_loss=cpu_loss,
+                cpu_grads=cpu_grads, exact=exact, abs_sums=abs_sums,
+                overrides=overrides)
 
-    def one_step(device, f64=False):
-        tr = make_trainer(name, schema, weights, cfg, device, best_dir)
-        batch = put(tr, hb, f64)
-        tr.model.train()
-        with lookup_abs_sums(tr.model) as sums:
-            loss, _ = tr._loss_and_logits(batch)
-            loss.backward()
-        return float(loss.detach()), {n: p.grad.double().cpu()
-                                      for n, p in tr.model.named_parameters()}, sums
 
-    gpu_loss, gpu_grads, _ = one_step("cuda")
-    cpu_loss, cpu_grads, _ = one_step("cpu")
-    _, exact, abs_sums = one_step("cpu", f64=True)
+def hold_step(label: str, ref: dict, loss: float, grads: dict, zero: set[str]) -> float:
+    """A train step's loss and gradients held to ``ref`` (``step_reference``):
+    the loss to the f32 CPU step's within rtol 1e-5, each gradient to the f64
+    step (``step_gradient_ratios``; ``zero``: the parameters whose true
+    gradient is 0).  Prints the worst tensor; returns its share of the
+    allowance."""
+    exact = ref["exact"]
 
-    def max_err(grads):
-        return max(float((grads[n] - exact[n]).abs().max()) for n in exact)
+    def max_err(g):
+        return max(float((g[n] - exact[n]).abs().max()) for n in exact)
 
-    ratios = step_gradient_ratios(gpu_grads, cpu_grads, exact, zero, abs_sums)
+    ratios = step_gradient_ratios(grads, ref["cpu_grads"], exact, zero, ref["abs_sums"])
     worst = max(ratios, key=ratios.get)
-    print(f"{name} train step, {int(keep.sum())} of B={BST_BATCH} rows away from a relu kink "
-          f"{overrides or ''}: loss cuda {gpu_loss} cpu "
-          f"{cpu_loss}; over {len(exact)} gradient tensors against the f64 CPU step, cuda "
-          f"within {max_err(gpu_grads):.3e}, f32 CPU within {max_err(cpu_grads):.3e}; the "
-          f"worst tensor, {worst}, uses {ratios[worst]:.4f} of its allowance", flush=True)
-    if not (math.isfinite(gpu_loss) and abs(gpu_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)):
-        raise AssertionError("the cuda train step's loss is not the CPU's within rtol 1e-5")
+    print(f"{label} train step, {int(ref['keep'].sum())} of B={len(ref['keep'])} rows away "
+          f"from a relu kink {ref['overrides'] or ''}: loss {loss} cpu {ref['cpu_loss']}; over "
+          f"{len(exact)} gradient tensors against the f64 CPU step, within "
+          f"{max_err(grads):.3e}, f32 CPU within {max_err(ref['cpu_grads']):.3e}; the worst "
+          f"tensor, {worst}, uses {ratios[worst]:.4f} of its allowance", flush=True)
+    if not (math.isfinite(loss) and abs(loss - ref["cpu_loss"]) <= 1e-5 * abs(ref["cpu_loss"])):
+        raise AssertionError(f"{label}: the train step's loss is not the CPU's within rtol 1e-5")
     beyond = {n: r for n, r in ratios.items() if not r <= 1.0}
     if beyond:
-        raise AssertionError(f"gradients beyond {GRAD_TOL} x max|g| + {STEP_NOISE} x the "
+        raise AssertionError(f"{label}: gradients beyond {GRAD_TOL} x max|g| + {STEP_NOISE} x the "
                              f"f32 CPU step's error, as shares of the allowance: {beyond}")
+    return ratios[worst]
+
+
+def step_vs_cpu(name: str, best_dir: str, zero: set[str], **overrides) -> dict:
+    """One full-width train step of ``name`` (loss and every gradient) on
+    cuda (``step_setup``), held against the same step on the CPU
+    (``step_reference``, ``hold_step``).  Returns the reference, with the
+    step's ``loss`` and the worst ``ratio``."""
+    ref = step_reference(name, best_dir, **overrides)
+    tr = make_trainer(name, ref["schema"], ref["weights"], ref["cfg"], "cuda", best_dir)
+    loss, grads, _ = one_step(tr, tr._put_batch(ref["hb"]))
+    ref["ratio"] = hold_step(f"{name} (cuda)", ref, loss, grads, zero)
+    ref["loss"] = loss
+    return ref
 
 
 def train_step_profile(name: str, best_dir: str, card: str, kind: str,
@@ -875,8 +969,9 @@ def step_phase(name: str, best_dir: str, capture_module, zero: set[str], card: s
     bst_mha``, the entry the model calls) of that step's forward on cuda over
     all of its batch's rows, against their twins, timed beside their bounds
     and SDPA; the train step profiled (config defaults).  Returns
-    bst_kernels_vs_twins's report at the captured inputs."""
-    step_vs_cpu(name, best_dir, zero)
+    bst_kernels_vs_twins's report at the captured inputs and the held
+    step's reference (``step_vs_cpu``)."""
+    ref = step_vs_cpu(name, best_dir, zero)
 
     schema, weights, cfg, hb = step_setup(name, best_dir)
     tr = make_trainer(name, schema, weights, cfg, "cuda", best_dir)
@@ -905,7 +1000,7 @@ def step_phase(name: str, best_dir: str, capture_module, zero: set[str], card: s
     print(f"BST kernels at the {name} train step's first attention inputs "
           f"({tuple(q.shape)}, mean len {lens.mean():.2f}): {json.dumps(r, default=str)}")
     train_step_profile(name, best_dir, card, kind, "bst_attention")
-    return r
+    return r, ref
 
 
 def bst_entries(reports: dict[str, dict], counts: dict[str, dict]) -> list[dict]:
@@ -1370,7 +1465,8 @@ def files_phase(work: str) -> tuple[dict[str, dict], dict[str, str]]:
               f"{r['wait_share']:.4f} of the wall", flush=True)
     return ({"BST from files": bst_counts, "DIN stream": din_counts},
             {"artifact": artifact, "predictions": os.path.join(bst_dir, "predictions.csv"),
-             "eval": eval_path, "vocabulary": vocab_dir})
+             "eval": eval_path, "vocabulary": vocab_dir, "train": train_path,
+             "bst_dir": bst_dir})
 
 
 def artifact_batches(gen, n: int, rows: int = ARTIFACT_BATCH) -> list[dict]:
@@ -1677,7 +1773,7 @@ def quantized_overlap(exact, quant, users, k: int) -> float:
     return float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ids_e, ids_q)]))
 
 
-def retrieval_phase(best_dir: str, schema, recall: float) -> None:
+def retrieval_phase(best_dir: str, schema, recall: float, save_to: str) -> None:
     """TwoTower on cuda.  Full width (``best_dir``, the item corpus of
     cli.main's eval split): brute_force_top_k and quantized_top_k against
     their CPU twins on the same vectors (``topk_vs_cpu``); the int8 corpus's
@@ -1685,7 +1781,8 @@ def retrieval_phase(best_dir: str, schema, recall: float) -> None:
     the scores it has to resolve; cli.main's recall beside its random
     baseline.  The floor: tests/test_retrieval.py's own case (8-wide towers
     from a seed, the seed-7 stream at vocab scale 0.002, 4 corpus batches
-    of 32, k = 10) on cuda, overlap at least QUANTIZED_OVERLAP."""
+    of 32, k = 10) on cuda, overlap at least QUANTIZED_OVERLAP.  The users and
+    the f32 corpus go to ``save_to`` for phase 16's sharded top-k."""
     from recalgorithm_tpu_torch.cli.main import EVAL_BATCHES, EVAL_START_SEED
     from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
     from recalgorithm_tpu_torch.features.schema import wechat_schema
@@ -1708,6 +1805,7 @@ def retrieval_phase(best_dir: str, schema, recall: float) -> None:
     quant.build_corpus(evals)
     build_s = time.perf_counter() - t0
     u = exact._embed(model.user_embedding, evals[0])[:TWIN_USERS]
+    np.savez(save_to, users=u.cpu().numpy(), corpus=exact.corpus.cpu().numpy())
     k = RECALL_K
     same = topk_vs_cpu("brute_force_top_k", brute_force_top_k(u, exact.corpus, k + 1),
                        brute_force_top_k(u.cpu(), exact.corpus.cpu(), k + 1), k)
@@ -1773,7 +1871,8 @@ def multitask_phase(work: str, gen, card: str, kind: str) -> None:
     for name in ("PLE", "DIEN"):
         timed("profiles", train_step_profile, name, dirs[name], card, kind, kernel=None,
               iters=NEW_PROFILE_ITERS)
-    timed("retrieval", retrieval_phase, dirs["TwoTower"], schema, recall)
+    timed("retrieval", retrieval_phase, dirs["TwoTower"], schema, recall,
+          os.path.join(work, "retrieval.npz"))
     root = os.path.join(work, "artifacts_new")
     os.makedirs(root)
     for name in ("MMOE", "TwoTower"):
@@ -1781,6 +1880,279 @@ def multitask_phase(work: str, gen, card: str, kind: str) -> None:
     timed("goldens", golden_phase, NEW_MODELS, work)
     print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s: "
           + ", ".join(f"{part} {s:.1f} s" for part, s in times.items()))
+
+
+def mesh_step(tr, hb) -> tuple[float, dict]:
+    """One train-mode forward and backward of a mesh trainer on this rank's
+    rows ``hb``: the global loss and every gradient gathered whole (f64, on
+    the CPU), each the global batch mean's as a 1-process step's."""
+    from recalgorithm_tpu_torch.parallel import mesh as mesh_lib
+
+    tr.model.train()
+    loss, _ = tr._loss_and_logits(tr._put_batch(hb, tr.global_batch_size))
+    loss.backward()
+    global_loss = float(tr._reduce_grads(loss))
+    return global_loss, {n: mesh_lib.gather_tensor(p.grad, tr.specs[n], tr.mesh).double().cpu()
+                         for n, p in tr.model.named_parameters()}
+
+
+def mesh_rank(rank: int, world: int, store: str, root: str) -> None:
+    """One rank of phase 16 (``chip_smoke.py --mesh-rank``): joins the gloo
+    group through ``store``, reads ``root/inputs.json`` and writes
+    ``root/rank<r>.json`` (rank 0 also the gathered gradients and top-k)."""
+    from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.parallel import mesh as mesh_lib
+    from recalgorithm_tpu_torch.parallel import multihost
+    from recalgorithm_tpu_torch.serving.retrieval import sharded_top_k
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = multihost.initialize(f"file://{store}", world, rank)
+    with open(os.path.join(root, "inputs.json")) as f:
+        inp = json.load(f)
+    out: dict = {"rank": rank, "backend": backend,
+                 "device": str(multihost.rank_device("cuda"))}
+    print(f"rank {rank} of {world}: backend {backend}, {out['device']}", flush=True)
+    try:
+        data_mesh = mesh_lib.make_mesh(1)
+        # (a) BST: the held step on this rank's rows of phase 8's batch
+        schema, weights, cfg, _ = step_setup("BST", inp["bst_weights"])
+        with np.load(os.path.join(root, "bst_batch.npz")) as z:
+            hb = {k: z[k] for k in z.files}
+        lo, hi = multihost.host_shard_range(len(hb["labels"]), data_mesh)
+        zero_counts()
+        tr = make_trainer("BST", schema, weights, cfg, "cuda", root, data_mesh,
+                          len(hb["labels"]))
+        out["bst_loss"], grads = mesh_step(tr, {k: v[lo:hi] for k, v in hb.items()})
+        out["bst_rows"] = hi - lo
+        out["bst_table_rows"] = int(tr.model.embedder.embed.tables["feedid"].shape[0])
+        if rank == 0:
+            np.savez(os.path.join(root, "bst_grads.npz"), **{k: v.numpy() for k, v in grads.items()})
+        # MESH_STEPS steps, then the timed and profiled ones
+        tr = make_trainer("BST", schema, weights, cfg, "cuda", root, data_mesh,
+                          len(hb["labels"]))
+        gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=7, vocab_scale=1.0))
+        local = [{k: v[lo:hi] for k, v in gen.batch(len(hb["labels"]), MESH_BATCH_SEED + i).items()}
+                 for i in range(MESH_STEPS)]
+        out["bst_losses"] = [float(tr.train_step(b)) for b in local]
+        prof = profile_train_step(tr, local[:4], "bst_attention", MESH_PROFILE_ITERS)
+        out["bst_profile"] = {k: prof[k] for k in ("step_ms", "wall_ms", "busy_ms",
+                                                  "idle_share", "device_ops_per_step")}
+        out["bst_counts"] = kernel_counts()
+        # (c) MMOE on a (data 1, model 2) mesh: every row on both ranks
+        model_mesh = mesh_lib.make_mesh(2)
+        schema, weights, cfg, _ = step_setup("MMOE", inp["mmoe_weights"], batch_norm=False,
+                                            num_experts=MESH_EXPERTS)
+        with np.load(os.path.join(root, "mmoe_batch.npz")) as z:
+            hb = {k: z[k] for k in z.files}
+        tr = make_trainer("MMOE", schema, weights, cfg, "cuda", root, model_mesh,
+                          len(hb["labels"]))
+        out["mmoe_loss"], grads = mesh_step(tr, hb)
+        out["mmoe_local_experts"] = list(tr.model.experts.kernel.shape)
+        if rank == 0:
+            np.savez(os.path.join(root, "mmoe_grads.npz"), **{k: v.numpy() for k, v in grads.items()})
+        # (d) sharded_top_k over every rank
+        with np.load(inp["retrieval"]) as z:
+            users, corpus = (torch.from_numpy(z[k]).cuda() for k in ("users", "corpus"))
+        scores, idx = sharded_top_k(users, corpus, RECALL_K + 1, data_mesh)
+        if rank == 0:
+            np.savez(os.path.join(root, "top_k.npz"), scores=scores.cpu().numpy(),
+                     indices=idx.cpu().numpy())
+        # (b) cli.main from phase 13's checkpoint: no step left, eval and predict
+        for mode, extra in (("whole", ()), ("stream", ("--stream", "--stream_chunk_records",
+                                                        str(STREAM_CHUNK)))):
+            zero_counts()
+            final = data_cli("BST", os.path.join(root, f"cli_{mode}"), inp["files"],
+                             FILE_BST_RESUME, extra)
+            out[f"cli_{mode}"] = {"final": final, "counts": kernel_counts()}
+    finally:
+        multihost.shutdown()
+    out["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def run_mesh_ranks(root: str) -> list[dict]:
+    """Start MESH_RANKS processes of ``mesh_rank`` (this script with
+    ``--mesh-rank``), each with MESH_RANK_TIMEOUT_S; print their logs; fail
+    if any rank fails.  Returns each rank's results."""
+    store = os.path.join(root, "store")
+    logs = [open(os.path.join(root, f"rank{r}.log"), "w+") for r in range(MESH_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                               str(r), str(MESH_RANKS), store, root],
+                              stdout=logs[r], stderr=subprocess.STDOUT, text=True)
+             for r in range(MESH_RANKS)]
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:  # a rank left behind by a failure or the time limit
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, log in enumerate(logs):
+        log.seek(0)
+        lines = log.read().splitlines()
+        log.close()
+        print(f"  -- rank {r} (exit {procs[r].returncode}), last lines of its log:")
+        for line in lines[-40:]:
+            print(f"  [rank {r}] {line}")
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"phase 16: rank exit codes {[p.returncode for p in procs]}")
+    results = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def mesh_phase(work: str, bst_ref: dict, step_dir: str, bst_zero: set[str], scoring: dict,
+               card: str) -> dict[str, dict]:
+    """Phase 16: the port as MESH_RANKS processes sharing the one card over
+    gloo.  The 1-process references first (alone on the card), then the
+    ranks (``mesh_rank``), then every check.  Returns each rank's launches
+    of every kernel over its paths."""
+    from recalgorithm_tpu_torch import convert
+    from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.models.mmoe import MMOE, MMOEConfig
+    from recalgorithm_tpu_torch.serving.retrieval import brute_force_top_k
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "mesh")
+    os.makedirs(root)
+    files = (scoring["train"], scoring["eval"], scoring["vocabulary"])
+    # ---- inputs and the 1-process references
+    np.savez(os.path.join(root, "bst_batch.npz"), **bst_ref["hb"])
+    mmoe_cfg = MMOEConfig(dropout_rate=0.0, batch_norm=False, num_experts=MESH_EXPERTS)
+    gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=7, vocab_scale=1.0))
+    mmoe = MMOE(mmoe_cfg, wechat_schema(gen.vocab_sizes()),
+                torch.Generator().manual_seed(STEP_WEIGHT_SEED))
+    mmoe_dir = convert.save_export(os.path.join(root, "mmoe"), 0, 0.0, mmoe)
+    mmoe_ref = step_reference("MMOE", mmoe_dir, batch_norm=False, num_experts=MESH_EXPERTS)
+    np.savez(os.path.join(root, "mmoe_batch.npz"), **mmoe_ref["hb"])
+    tr = make_trainer("MMOE", mmoe_ref["schema"], mmoe_ref["weights"], mmoe_ref["cfg"],
+                      "cuda", root)
+    loss, grads, _ = one_step(tr, tr._put_batch(mmoe_ref["hb"]))
+    hold_step(f"MMOE, {MESH_EXPERTS} experts, 1 process (cuda)", mmoe_ref, loss, grads, set())
+    tr = make_trainer("BST", bst_ref["schema"], bst_ref["weights"], bst_ref["cfg"], "cuda", root)
+    rows = len(bst_ref["hb"]["labels"])
+    one_losses = [float(tr.train_step(gen.batch(rows, MESH_BATCH_SEED + i)))
+                  for i in range(MESH_STEPS)]
+    for mode in ("one", "whole", "stream"):  # phase 13's BST run, restored in each
+        shutil.copytree(scoring["bst_dir"], os.path.join(root, f"cli_{mode}"))
+    one_final = data_cli("BST", os.path.join(root, "cli_one"), files, FILE_BST_RESUME)
+    with open(os.path.join(root, "inputs.json"), "w") as f:
+        json.dump({"bst_weights": step_dir, "mmoe_weights": mmoe_dir, "files": files,
+                   "retrieval": os.path.join(work, "retrieval.npz")}, f)
+    t_ref = time.perf_counter() - t_phase
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- the ranks
+    t0 = time.perf_counter()
+    ranks = run_mesh_ranks(root)
+    t_ranks = time.perf_counter() - t0
+
+    # ---- (a) BST
+    with np.load(os.path.join(root, "bst_grads.npz")) as z:
+        grads = {k: torch.from_numpy(z[k]) for k in z.files}
+    losses = {r["rank"]: r["bst_loss"] for r in ranks}
+    if len(set(losses.values())) != 1:
+        raise AssertionError(f"the ranks disagree on the global loss: {losses}")
+    tables = [(r["bst_table_rows"], r["bst_rows"]) for r in ranks]
+    print(f"BST on {MESH_RANKS} ranks sharing one card over {ranks[0]['backend']}: each rank "
+          f"(feedid table rows held, batch rows) {tables} of "
+          f"{grads['embedder.embed.tables.feedid'].shape[0]} rows and B={rows}")
+    bst_ratio = hold_step(f"BST on {MESH_RANKS} ranks, gradients gathered whole", bst_ref,
+                          losses[0], grads, bst_zero)
+    print(f"BST, {MESH_STEPS} Adam steps, global loss: 1 process {one_losses}")
+    for r in ranks:
+        print(f"  rank {r['rank']}: {r['bst_losses']}")
+        if not np.allclose(r["bst_losses"], one_losses, rtol=MESH_LOSS_RTOL, atol=0):
+            raise AssertionError(f"rank {r['rank']}'s losses beyond rtol {MESH_LOSS_RTOL} of "
+                                 "the 1-process run's")
+    steps = 1 + MESH_STEPS + 3 + 3 * MESH_PROFILE_ITERS
+    want = {"din_attention": 0, "bst_attention_forward": 0,
+            "bst_attention_forward_save": steps, "bst_attention_backward": steps}
+    for r in ranks:
+        if r["bst_counts"] != want:
+            raise AssertionError(f"rank {r['rank']}: BST kernel launches {r['bst_counts']}, "
+                                 f"want {want}")
+        print(f"  rank {r['rank']} BST kernel launches {r['bst_counts']} (want {want})")
+        prof = r["bst_profile"]
+        print(f"  rank {r['rank']} train step, B={rows // MESH_RANKS} a rank, two ranks "
+              f"sharing one card ({card}) over {r['backend']}: {prof['step_ms']} ms a step "
+              f"(CUDA events over {MESH_PROFILE_ITERS} steps), host wall "
+              f"{prof['wall_ms']} ms, device busy {prof['busy_ms']} ms of this rank's "
+              f"kernels, idle share {prof['idle_share']:.4f} (the other rank's kernels "
+              f"count as idle here), {prof['device_ops_per_step']:.0f} kernels+copies "
+              "per step")
+    # ---- (c) MMOE
+    with np.load(os.path.join(root, "mmoe_grads.npz")) as z:
+        grads = {k: torch.from_numpy(z[k]) for k in z.files}
+    whole = list(grads["experts.kernel"].shape)
+    print(f"MMOE on a (data 1, model {MESH_RANKS}) mesh: each rank holds experts.kernel "
+          f"{[r['mmoe_local_experts'] for r in ranks]} of {whole}")
+    if any(r["mmoe_local_experts"] != [whole[0] // MESH_RANKS, *whole[1:]] for r in ranks):
+        raise AssertionError("MMOE's experts are not split over the model axis")
+    mmoe_ratio = hold_step(f"MMOE on a (1, {MESH_RANKS}) mesh, gradients gathered whole",
+                           mmoe_ref, ranks[0]["mmoe_loss"], grads, set())
+    # ---- (d) sharded_top_k
+    with np.load(os.path.join(work, "retrieval.npz")) as z:
+        users, corpus = (torch.from_numpy(z[k]).cuda() for k in ("users", "corpus"))
+    with np.load(os.path.join(root, "top_k.npz")) as z:
+        sharded = (torch.from_numpy(z["scores"]), torch.from_numpy(z["indices"]))
+    same = topk_vs_cpu("sharded_top_k", sharded, brute_force_top_k(users, corpus, RECALL_K + 1),
+                       RECALL_K)
+    print(f"sharded_top_k over {MESH_RANKS} ranks, corpus {corpus.shape[0]} items, "
+          f"{users.shape[0]} users, k={RECALL_K}: the same ids in the same order as "
+          f"brute_force_top_k on one rank in {same} rows (every other row a tie within "
+          f"{TOPK_TIE})")
+    # ---- (b) cli.main on 2 processes
+    with open(scoring["predictions"]) as f:
+        want_rows = list(csv.reader(f))
+    n_batches = 2 * -(-(FILE_EVAL_ROWS // MESH_RANKS + FILE_EVAL_ROWS % MESH_RANKS) // BST_BATCH)
+    for mode in ("whole", "stream"):
+        finals = [r[f"cli_{mode}"]["final"] for r in ranks]
+        counts = [r[f"cli_{mode}"]["counts"] for r in ranks]
+        with open(os.path.join(root, f"cli_{mode}", "predictions.csv")) as f:
+            got_rows = list(csv.reader(f))
+        if len(got_rows) != len(want_rows) or any(
+                g[:2] + g[3:] != w[:2] + w[3:] for g, w in zip(got_rows, want_rows)):
+            raise AssertionError(f"cli.main on 2 processes ({mode}): predictions.csv is not the "
+                                 f"{FILE_EVAL_ROWS} eval rows once each in file order")
+        prob_err = max(abs(float(g[2]) - float(w[2])) for g, w in zip(got_rows[1:], want_rows[1:]))
+        diffs = {k: max(abs(fin[k] - one_final[k]) for fin in finals)
+                 for k in ("read_comment_exact_auc", "read_comment_gauc")}
+        print(f"cli.main on {MESH_RANKS} processes ({mode}) from phase 13's checkpoint at step "
+              f"{FILE_BST_RESUME}: {len(got_rows) - 1} rows, ids and labels as the 1-process "
+              f"predictions.csv, probabilities within {prob_err:.2e}; exact AUC "
+              f"{finals[0]['read_comment_exact_auc']} GAUC {finals[0]['read_comment_gauc']}, "
+              f"1 process {one_final['read_comment_exact_auc']} / "
+              f"{one_final['read_comment_gauc']} (apart {diffs}); forward launches a rank "
+              f"{[c['bst_attention_forward'] for c in counts]}")
+        if any(d > MESH_AUC_TOL for d in diffs.values()):
+            raise AssertionError(f"cli.main on 2 processes ({mode}): AUC/GAUC beyond "
+                                 f"{MESH_AUC_TOL} of the 1-process run")
+        if (any(c["bst_attention_forward_save"] or c["bst_attention_backward"] for c in counts)
+                or (mode == "whole" and any(c["bst_attention_forward"] != n_batches
+                                            for c in counts))
+                or len({c["bst_attention_forward"] for c in counts}) != 1):
+            raise AssertionError(f"cli.main ({mode}) launches {counts}: no train step, one "
+                                 "forward per eval or predict batch, the same on each rank")
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s (1-process references "
+          f"{t_ref:.1f} s, ranks {t_ranks:.1f} s: {[round(r['seconds'], 1) for r in ranks]}); "
+          f"held steps at {bst_ratio:.4f} (BST) and {mmoe_ratio:.4f} (MMOE) of the allowance")
+    # each rank's launches on its paths: BST's steps and the two cli.main runs
+    return {f"mesh rank {r['rank']}": {k: r["bst_counts"][k] + r["cli_whole"]["counts"][k]
+                                       + r["cli_stream"]["counts"][k] for k in r["bst_counts"]}
+            for r in ranks}
 
 
 def card_line() -> str:
@@ -1851,6 +2223,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False: no GPU to run on",
               file=sys.stderr)
         return 1
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":  # one rank of phase 16
+        rank, world, store, root = sys.argv[2:6]
+        mesh_rank(int(rank), int(world), store, root)
+        return 0
 
     from recalgorithm_tpu_torch import convert
     from recalgorithm_tpu_torch.cli.serve import build_server
@@ -2107,8 +2483,10 @@ def main() -> int:
     from recalgorithm_tpu_torch.models.bst import BSTConfig
     from recalgorithm_tpu_torch.ops.cuda import bst_attention
 
-    reports = {"BST": step_phase("BST", best_dir, attention,
-                                 zero_gradient_params(BSTConfig()), card, kind)}
+    step_dir = repeatable_weights("BST", os.path.join(work, "bst_step"))
+    bst_zero = zero_gradient_params(BSTConfig())
+    reports = {}
+    reports["BST"], bst_ref = step_phase("BST", step_dir, attention, bst_zero, card, kind)
 
     phase("9. golden recipe (tests/golden_common.py) for BST and DIN on cuda")
     golden_phase(("BST", "DIN"), work)
@@ -2123,7 +2501,7 @@ def main() -> int:
     autoint_counts, autoint_dir = train_and_resume(
         "AutoInt", os.path.join(work, "autoint"), AUTOINT_LAYERS)
     # AutoInt has no BatchNorm: no gradient of its step is zero
-    reports["AutoInt"] = step_phase("AutoInt", autoint_dir, bst_attention, set(), card, kind)
+    reports["AutoInt"] = step_phase("AutoInt", autoint_dir, bst_attention, set(), card, kind)[0]
     serve_export("AutoInt", autoint_dir, gen)
     golden_phase(("AutoInt",), work)
 
@@ -2160,13 +2538,21 @@ def main() -> int:
     if any(kernel_counts().values()):
         raise AssertionError(f"phase 15 launched hand kernels: {kernel_counts()}")
 
+    phase(f"16. several processes: {MESH_RANKS} ranks sharing the one card over gloo (NCCL "
+          "refuses two ranks on one device): BST's step on row-sharded tables held to the "
+          f"1-process step, {MESH_STEPS} steps, exact launches, time a rank; cli.main from "
+          "phase 13's checkpoint, whole-load and --stream; MMOE's experts split over a "
+          "(1, 2) mesh; sharded_top_k")
+    mesh_counts = mesh_phase(work, bst_ref, step_dir, bst_zero, scoring, card)
+
     din_by_path = {"serving": serve_launches,
                    "DIN stream": file_counts["DIN stream"]["din_attention"],
                    **{path: c["din_attention"] for path, c in artifact_counts.items()}}
     din_entry.update(launches=sum(din_by_path.values()), launches_by_path=din_by_path)
     report = {"kernels": [din_entry, *bst_entries(
         reports, {"BST": bst_counts_run, "AutoInt": autoint_counts,
-                  "BST from files": file_counts["BST from files"], **artifact_counts})]}
+                  "BST from files": file_counts["BST from files"], **artifact_counts,
+                  **mesh_counts})]}
     print(f"\nchip_smoke.py took {time.perf_counter() - t_start:.1f} s, the kernels' build "
           "included")
     print(card)

@@ -20,8 +20,19 @@ After training, ``--export_stablehlo <path>`` writes a serving artifact
 with a ``wide_param_predicate`` (Wide&Deep) trains with the dual FTRL/deep
 optimizer from its config.  ``--eval_recall_at K`` builds, after training,
 the item corpus of a retrieval model (one with ``item_embedding``: TwoTower)
-from the eval split and reports ``recall_at_K`` with the final eval.  Not
-ported yet: the mesh flags.
+from the eval split and reports ``recall_at_K`` with the final eval.
+
+Several processes (``python -m torch.distributed.run --nproc_per_node N -m
+recalgorithm_tpu_torch.cli.main ...``, or any launcher that sets torchrun's
+environment): the processes form a (N / ``--num_model_shards``,
+``--num_model_shards``) mesh (``parallel/mesh.py``) unless ``--no_mesh``;
+each reads its data shard's rows (``shard_for_host``, or a strided chunk set
+with ``--stream``) in lock-step (``synchronized_iterator``), evaluates its
+share of the eval split (padded to a common batch count), and process 0
+alone writes ``predictions.csv``, the summaries, Recall@K and the exports.
+``--batch_size`` is per process, as in the JAX CLI.  ``--shard_map_embeddings``
+is accepted for the JAX CLI's sake: the port's table lookups under a mesh are
+always the explicit exchange of ``embed/sharded.py``.
 
 After training: the final eval metrics are printed, and ``predictions.csv``
 holds per-task probabilities in the JAX CLI's column layout (reference
@@ -91,6 +102,13 @@ def build_parser(model_name: str | None = None) -> argparse.ArgumentParser:
     parser.add_argument("--grad_accum_steps", type=int, default=1,
                         help="accumulate k micro-batch gradients before each "
                              "optimizer step (effective batch = k x batch_size)")
+    parser.add_argument("--num_model_shards", type=int, default=1,
+                        help="mesh 'model' axis size (1 = pure data parallel)")
+    parser.add_argument("--no_mesh", action="store_true",
+                        help="several processes train without a mesh, each alone")
+    parser.add_argument("--shard_map_embeddings", action="store_true",
+                        help="the explicit embedding exchange (the port's only one "
+                             "under a mesh; accepted as the JAX CLI's flag)")
     parser.add_argument("--predictions_csv", default="predictions.csv")
     parser.add_argument("--eval_recall_at", type=int, default=0,
                         help="for retrieval models (TwoTower): after training, "
@@ -125,6 +143,8 @@ def list_models() -> None:
 def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
     from recalgorithm_tpu_torch.features.schema import douban_schema, wechat_schema
     from recalgorithm_tpu_torch.models import MODEL_REGISTRY
+    from recalgorithm_tpu_torch.parallel import mesh as mesh_lib
+    from recalgorithm_tpu_torch.parallel import multihost
     from recalgorithm_tpu_torch.serving.predictor import resolve_device
     from recalgorithm_tpu_torch.train import optimizers
     from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig, latest_checkpoint_step
@@ -148,6 +168,18 @@ def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
         parser.error(f"{', '.join(missing)} required without --synthetic")
     cfg = cfg_cls(**{f.name: getattr(args, f.name) for f in dataclasses.fields(cfg_cls)})
     device = resolve_device(args.device)
+    backend = multihost.initialize(device=device)  # no-op for one process
+    nproc = multihost.process_count()
+    if nproc > 1:
+        device = multihost.rank_device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+    mesh = (mesh_lib.make_mesh(args.num_model_shards)
+            if nproc > 1 and not args.no_mesh else None)
+    if nproc > 1:
+        print(f"process {multihost.process_index()} of {nproc} ({backend}, {device}); "
+              + (f"mesh data {mesh.data_size} x model {mesh.num_model}" if mesh else "no mesh"))
+    writer = multihost.process_index() == 0
     schema_fn = {"wechat": wechat_schema, "douban": douban_schema}[args.dataset]
     # a resumed run continues the batch stream from the restored step
     start = min(latest_checkpoint_step(args.model_dir), cfg.train_steps)
@@ -161,33 +193,66 @@ def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
         schema = schema_fn(gen.vocab_sizes())
         train_iter = gen.batches(cfg.batch_size, cfg.train_steps - start, start_seed=start)
         eval_fn = lambda: gen.batches(cfg.batch_size, EVAL_BATCHES, start_seed=EVAL_START_SEED)
+        whole_eval_fn = eval_fn
     else:
         from recalgorithm_tpu_torch.data import pipeline
         from recalgorithm_tpu_torch.features.vocab import VocabularyStore
 
         vocabs = VocabularyStore.from_dir(args.vocabulary_dir)
         schema = schema_fn(vocabs.sizes())
+        # this process's data shard (its mesh row); without a mesh every
+        # process reads the whole split
+        host, hosts = multihost.data_shard(mesh) if mesh is not None else (0, 1)
         if args.stream:
             source = pipeline.stream_batches(
                 args.train_data, schema, vocabs, cfg.batch_size, num_epochs=cfg.num_epochs,
                 shuffle_buffer_size=cfg.shuffle_buffer_size, seed=args.seed,
                 max_steps=cfg.train_steps, chunk_records=args.stream_chunk_records,
-                limit=args.limit_examples, cache_dir=args.stream_cache_dir)
-            eval_fn = lambda: pipeline.stream_eval_batches(
+                limit=args.limit_examples, host_index=host, host_count=hosts,
+                cache_dir=args.stream_cache_dir)
+
+            def eval_fn():
+                it = pipeline.stream_eval_batches(
+                    args.eval_data, schema, vocabs, cfg.batch_size,
+                    chunk_records=args.stream_chunk_records, limit=args.limit_examples,
+                    host_index=host, host_count=hosts, cache_dir=args.stream_cache_dir)
+                if hosts == 1:
+                    return it
+                # pad short shards into lock-step: every row scored once
+                return multihost.aligned_iterator(
+                    it, lambda: pipeline.zero_batch(schema, cfg.batch_size))
+
+            whole_eval_fn = lambda: pipeline.stream_eval_batches(
                 args.eval_data, schema, vocabs, cfg.batch_size,
                 chunk_records=args.stream_chunk_records, limit=args.limit_examples,
                 cache_dir=args.stream_cache_dir)
         else:
             train_arrays = pipeline.load_dataset(args.train_data, schema, vocabs,
                                                  limit=args.limit_examples)
+            if hosts > 1:
+                train_arrays = pipeline.shard_for_host(train_arrays, mesh)
             source = pipeline.batches(
                 train_arrays, cfg.batch_size, num_epochs=cfg.num_epochs,
                 shuffle=cfg.shuffle_buffer_size > 0, seed=args.seed,
                 drop_remainder=True, max_steps=cfg.train_steps)
             eval_arrays = pipeline.load_dataset(args.eval_data, schema, vocabs,
                                                 limit=args.limit_examples)
-            eval_fn = lambda: pipeline.eval_batches(eval_arrays, cfg.batch_size)
+            whole_eval = eval_arrays
+            whole_eval_fn = lambda: pipeline.eval_batches(whole_eval, cfg.batch_size)
+            if hosts > 1:
+                # every shard steps the batch count of the largest (the last
+                # holds the remainder); short ones add zero-weight batches
+                n_eval = eval_arrays.num_examples
+                first, _ = multihost.host_shard_range(n_eval, mesh)
+                eval_arrays = pipeline.shard_for_host(eval_arrays, mesh)
+                n_batches = -(-(n_eval // hosts + n_eval % hosts) // cfg.batch_size)
+                eval_fn = lambda: pipeline.eval_batches(
+                    eval_arrays, cfg.batch_size, num_batches=n_batches, index_offset=first)
+            else:
+                eval_fn = lambda: pipeline.eval_batches(eval_arrays, cfg.batch_size)
         train_iter = pipeline.prefetch(itertools.islice(source, start, None))
+        if mesh is not None:  # outside prefetch: the collective runs on this thread
+            train_iter = multihost.synchronized_iterator(train_iter)
 
     # ---- model + trainer
     task_names = tuple(cfg.task_names) or (schema.labels[0],)
@@ -209,21 +274,32 @@ def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
                       eval_throttle_secs=args.eval_throttle_secs,
                       save_checkpoints_steps=cfg.save_checkpoints_steps, seed=args.seed,
                       grad_accum_steps=args.grad_accum_steps),
-        device=device,
+        device=device, mesh=mesh,
+        global_batch_size=cfg.batch_size * mesh.data_size if mesh is not None else None,
     )
     with profile(args.profile_dir or "", enabled=args.profile_dir is not None):
         final_eval = trainer.train_and_evaluate(train_iter, eval_fn)
     for key in sorted(final_eval):
         print(f"{key}: {final_eval[key]}")
 
+    # the whole model for Recall@K and the artifact, gathered once (every
+    # process enters the gather; process 0 uses it)
+    whole = trainer.model
+    want_recall = args.eval_recall_at and hasattr(trainer.model, "item_embedding")
+    if mesh is not None and (want_recall or args.export_stablehlo):
+        state = trainer.full_state_dict()
+        whole = model_cls(cfg, schema)
+        whole.load_state_dict(state)
+        whole.to(device)
+
     # ---- retrieval quality (TwoTower): offline Recall@K over the eval split
-    if args.eval_recall_at and hasattr(trainer.model, "item_embedding"):
+    if want_recall and writer:
         from recalgorithm_tpu_torch.serving.retrieval import Retriever
 
-        retr = Retriever(trainer.model, device)
-        n_corpus = retr.build_corpus(eval_fn())
+        retr = Retriever(whole, device)  # over the whole eval split
+        n_corpus = retr.build_corpus(whole_eval_fn())
         k = args.eval_recall_at
-        final_eval[f"recall_at_{k}"] = retr.recall_at_k(eval_fn(), k=k)
+        final_eval[f"recall_at_{k}"] = retr.recall_at_k(whole_eval_fn(), k=k)
         print(f"recall_at_{k}: {final_eval[f'recall_at_{k}']:.4f} (corpus {n_corpus}, "
               f"random ~{min(k / n_corpus, 1.0):.4f})")
 
@@ -255,6 +331,8 @@ def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
         _exact_metrics(final_eval, schema, task_names, probs, eval_labels,
                        collected[id_cols[0]])
 
+    if not writer:  # every process holds the same global rows; process 0 writes
+        return final_eval
     if os.path.dirname(args.predictions_csv):
         os.makedirs(os.path.dirname(args.predictions_csv), exist_ok=True)
     with open(args.predictions_csv, "w", newline="") as f:
@@ -278,7 +356,7 @@ def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
     if args.export_stablehlo:
         from recalgorithm_tpu_torch.serving.export import export_stablehlo
 
-        export_stablehlo(trainer.model, schema, args.serving_batch_size or cfg.batch_size,
+        export_stablehlo(whole, schema, args.serving_batch_size or cfg.batch_size,
                          args.export_stablehlo, quantize_embeddings=args.export_quantized)
         print(f"wrote {args.export_stablehlo} ({os.path.getsize(args.export_stablehlo)} "
               f"bytes, quantized={args.export_quantized})")
@@ -305,4 +383,9 @@ def _exact_metrics(final_eval: dict, schema, task_names, probs, labels, users) -
 
 
 if __name__ == "__main__":
-    main()
+    from recalgorithm_tpu_torch.parallel import multihost
+
+    try:
+        main()
+    finally:
+        multihost.shutdown()

@@ -96,11 +96,13 @@ def from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
-def to_flax(model: nn.Module) -> dict:
-    """The inverse of :func:`from_flax`: a nested dict of numpy arrays."""
+def to_flax(model: nn.Module, state_dict: Mapping[str, torch.Tensor] | None = None) -> dict:
+    """The inverse of :func:`from_flax`: a nested dict of numpy arrays, of
+    ``model``'s weights or of ``state_dict`` (``model``'s keys, e.g. the
+    whole state gathered from a process mesh's shards)."""
     flat: dict[tuple, np.ndarray] = {}
     buffers = {name for name, _ in model.named_buffers()}
-    for key, t in model.state_dict().items():
+    for key, t in (model.state_dict() if state_dict is None else state_dict).items():
         *mods, leaf = key.split(".")
         if leaf == "num_batches_tracked":
             continue
@@ -129,14 +131,16 @@ def read_best(model_dir: str) -> list[tuple[float, int]]:
 
 
 def save_export(model_dir: str, step: int, auc: float, model: nn.Module,
-                keep: int | None = None) -> str:
+                keep: int | None = None,
+                state_dict: Mapping[str, torch.Tensor] | None = None) -> str:
     """Write ``export/best_<step>/`` (weights + metrics.json) and record it
     in ``best_exports.json``; with ``keep``, only the ``keep`` highest-AUC
     exports stay listed and on disk (BestExporter(exports_to_keep) parity).
+    The weights are ``model``'s, or ``state_dict`` (:func:`to_flax`).
     Returns the export directory."""
     export_dir = os.path.join(model_dir, "export", f"best_{int(step)}")
     os.makedirs(export_dir, exist_ok=True)
-    flat = _flatten(to_flax(model))
+    flat = _flatten(to_flax(model, state_dict))
     np.savez(os.path.join(export_dir, EXPORT_FILE),
              **{"/".join(p): v for p, v in flat.items()})
     with open(os.path.join(export_dir, "metrics.json"), "w") as f:

@@ -17,8 +17,9 @@ parse -> prefetch(1) chain (reference algorithm/utils.py:18-26):
 
 The native reader (runtime/loader.py) parses unless the caller passes
 ``prefer_native=False``; a failed build or read raises, it never switches to
-the Python parser on its own.  ``shard_for_host`` (multi-process input) is
-not ported yet: the streams take ``host_index``/``host_count`` directly.
+the Python parser on its own.  Several processes read their own input:
+``shard_for_host`` keeps a loaded split's contiguous slice for this
+process's data shard, and the streams take ``host_index``/``host_count``.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import numpy as np
 from recalgorithm_tpu_torch.data import tfrecord
 from recalgorithm_tpu_torch.features.schema import Schema
 from recalgorithm_tpu_torch.features.vocab import VocabularyStore
+from recalgorithm_tpu_torch.parallel import multihost
 from recalgorithm_tpu_torch.runtime import loader
 from recalgorithm_tpu_torch.runtime.loader import DatasetArrays
 
@@ -179,6 +181,21 @@ def load_tfrecord_dataset(
         sequences=sequences,
         labels=np.asarray(label_rows, np.float32).reshape(n, len(schema.labels)),
     )
+
+
+def shard_for_host(data: DatasetArrays, mesh=None) -> DatasetArrays:
+    """This process's contiguous slice of a loaded split (its data shard of
+    ``mesh``, else its rank; ``parallel/multihost.host_shard_range``); the
+    whole split for one process."""
+    if multihost.data_shard(mesh)[1] == 1:
+        return data
+    start, end = multihost.host_shard_range(data.num_examples, mesh)
+    return DatasetArrays(
+        dense=data.dense[start:end],
+        categorical={f: v[start:end] for f, v in data.categorical.items()},
+        sequences={f: (ids[start:end], lens[start:end])
+                   for f, (ids, lens) in data.sequences.items()},
+        labels=data.labels[start:end])
 
 
 def load_dataset(

@@ -24,6 +24,12 @@ scales with the same clip rule and multiplies them (the JAX package's
 mean/sqrtn denominator, including out-of-range ids whose rows are zero on the
 dense rule.
 
+Under a process mesh (:meth:`EmbeddingCollection.shard_`) each rank holds rows
+``[r V/N, (r+1) V/N)`` of every table, and every rule gathers through the
+explicit exchange of ``embed/sharded.py`` (the JAX package's ``shard_map``
+lookups; torch has no partitioner to derive them).  The rules themselves are
+unchanged: they read the full row count, not the shard's.
+
 Initialiser: TF's ``embedding_column`` default ``truncated_normal(1/sqrt(dim))``
 in the form the JAX package draws it (``jax.nn.initializers.truncated_normal``):
 a standard normal cut at +-2, times ``stddev``.  So the cut is at +-2 stddev
@@ -40,6 +46,9 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from recalgorithm_tpu_torch.embed.sharded import sharded_lookup
+from recalgorithm_tpu_torch.parallel import mesh as mesh_lib
 
 # Table rows are padded up to a multiple of this (the JAX package row-shards
 # tables over up to 256 chips); padding rows are unreachable by valid ids.
@@ -87,9 +96,39 @@ class EmbeddingCollection(nn.Module):
             if spec.init != "zeros":
                 truncated_normal_(t, 1.0 / spec.dim**0.5, generator)
             self.tables[name] = nn.Parameter(t)
+        self.mesh = None  # a ProcessMesh once shard_ ran
+
+    def shard_(self, mesh) -> dict[str, str]:
+        """Keep only this rank's rows of every table, f32 or int8 with its
+        scales (row-sharded over all of ``mesh``'s ranks); lookups become
+        the sharded exchange.  The rows of a table divide the ranks
+        (ROW_ALIGN padding) or this raises.  Returns the state_dict names
+        it split, each ``mesh_lib.TABLE``."""
+        split = {}
+        for name, spec in self.specs.items():
+            if spec.num_rows % mesh.world:
+                raise ValueError(f"table {name!r}: {spec.num_rows} rows do not divide "
+                                 f"{mesh.world} ranks")
+            rows = spec.num_rows // mesh.world
+            part = slice(mesh.rank * rows, (mesh.rank + 1) * rows)
+            if name in self.tables:
+                self.tables[name].data = self.tables[name].data[part].clone()
+                split[f"tables.{name}"] = mesh_lib.TABLE
+            for key in (f"{name}__q", f"{name}__scale"):
+                if key in self._buffers:
+                    self._buffers[key] = self._buffers[key][part].clone()
+                    split[key] = mesh_lib.TABLE
+        self.mesh = mesh
+        return split
 
     def _is_dense(self, table: str) -> bool:
         return self.specs[table].num_rows <= DENSE_LOOKUP_MAX_ROWS
+
+    def _gather(self, table: str, weight: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """Rows ``idx`` (in range) of ``weight``, a table or this rank's shard."""
+        if self.mesh is None:
+            return F.embedding(idx, weight)
+        return sharded_lookup(weight, idx, self.mesh, self.specs[table].num_rows)
 
     def _clip_gather(self, table: str, ids: torch.Tensor) -> torch.Tensor:
         """``jnp.take(tab, ids, mode='clip')``: ids clamped into the table.
@@ -100,12 +139,14 @@ class EmbeddingCollection(nn.Module):
         WeChat-shaped batch repeats the PAD id about 170k times at B=4096
         (sequences are mostly padding), which took that backward 51 ms on
         an H100 (PERF.md)."""
+        idx = ids.long().clamp(0, self.specs[table].num_rows - 1)
         q = self._buffers.get(f"{table}__q")
         if q is not None:  # int8 rows times their f32 scales, as gathered
-            idx = ids.long().clamp(0, q.shape[0] - 1)
-            return q[idx].to(torch.float32) * self._buffers[f"{table}__scale"][idx]
-        tab = self.tables[table]
-        return F.embedding(ids.long().clamp(0, tab.shape[0] - 1), tab)
+            if self.mesh is None:
+                return q[idx].to(torch.float32) * self._buffers[f"{table}__scale"][idx]
+            return (self._gather(table, q.to(torch.float32), idx)
+                    * self._gather(table, self._buffers[f"{table}__scale"], idx))
+        return self._gather(table, self.tables[table], idx)
 
     def quantize_(self, table: str, q: torch.Tensor, scale: torch.Tensor) -> None:
         """Serve ``table`` from int8 rows ``q`` (rows, dim) and per-row f32
@@ -123,7 +164,7 @@ class EmbeddingCollection(nn.Module):
 
     def _dense_rows(self, table: str, ids: torch.Tensor) -> torch.Tensor:
         """Masked one-hot rule: rows of ids in [1, num_rows), zero elsewhere."""
-        valid = (ids > 0) & (ids < self.tables[table].shape[0])
+        valid = (ids > 0) & (ids < self.specs[table].num_rows)
         return self._clip_gather(table, ids) * valid[..., None].to(
             self.tables[table].dtype)
 

@@ -32,6 +32,7 @@ from recalgorithm_tpu_torch.models.din import DIN_CATEGORY_FIELDS, SequenceMLP
 from recalgorithm_tpu_torch.ops.attention import NEG_INF, sequence_mask
 from recalgorithm_tpu_torch.ops.mlp import glorot_param
 from recalgorithm_tpu_torch.ops.recurrent import GRULoop
+from recalgorithm_tpu_torch.parallel import multihost
 
 SEQ = "his_read_comment_7d_seq"
 
@@ -73,6 +74,7 @@ class DIEN(nn.Module):
                                config.batch_norm, config.dropout_rate, generator)
         if config.use_auxiliary_loss:
             self.aux_project_matrix = glorot_param(na, nh, generator=generator)
+        self.mesh = None  # under a process mesh the negatives roll the global batch
 
     def forward(self, batch) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
         embed = self.embedder.embed
@@ -102,15 +104,25 @@ class DIEN(nn.Module):
                         lengths: torch.Tensor) -> torch.Tensor:
         """Next-item discrimination: h_t should score e_{t+1} above in-batch
         negatives (dien.py:261-300, negated; negatives: the sequence rolled
-        by 1..negative_sample_number rows across the batch)."""
+        by 1..negative_sample_number rows across the batch, the global batch
+        under a process mesh, as under the JAX package's)."""
         w_aux = self.aux_project_matrix
         h_ = h[:, :-1, :]
         eps = 1e-8
         pos = seq[:, 1:, :] @ w_aux  # (B, T-1, nh)
         ll = torch.log(torch.sigmoid((h_ * pos).sum(-1)) + eps)
         neg_ll = 0.0
+        mesh = self.mesh
+        if mesh is not None and mesh.data_size > 1:  # roll the global batch
+            rows = seq.shape[0]
+            everyone = multihost.gather_rows(seq, mesh.data_group, mesh.data_size,
+                                             mesh.data_index, replicated=False)
+            rolled = lambda k: torch.roll(everyone, k, dims=0)[
+                mesh.data_index * rows:(mesh.data_index + 1) * rows]
+        else:
+            rolled = lambda k: torch.roll(seq, k, dims=0)
         for k in range(1, self.config.negative_sample_number + 1):
-            neg = torch.roll(seq, k, dims=0)[:, 1:, :] @ w_aux
+            neg = rolled(k)[:, 1:, :] @ w_aux
             neg_ll = neg_ll + torch.log(1.0 - torch.sigmoid((h_ * neg).sum(-1)) + eps)
         m = sequence_mask(lengths - 1, seq.shape[1] - 1).to(h.dtype)
         return -((ll + neg_ll) * m).sum(dim=1).mean()

@@ -26,6 +26,11 @@ temperature.  Losses, returned beside the logits when the batch has labels
     BatchNorm updates its statistics;
   * the trainer's per-task sigmoid CE on the logit, which
     ``task_loss_weights=(("read_comment", 0.0),)`` turns off.
+
+Under a process mesh the softmax, the collision mask, the label sum and the
+``feedid_freq`` counts span the global batch, as under the JAX package's: each
+rank scores its users against every data shard's items, gathered with their
+gradient.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from recalgorithm_tpu_torch.embed.tables import EmbeddingCollection, TableSpec
 from recalgorithm_tpu_torch.features.schema import Schema
 from recalgorithm_tpu_torch.models import common
 from recalgorithm_tpu_torch.ops.mlp import MLPTower
+from recalgorithm_tpu_torch.parallel import multihost
 
 SEQ = "his_read_comment_7d_seq"
 
@@ -95,6 +101,7 @@ class TwoTower(nn.Module):
         self.item_tower = MLPTower(5 * k + len(self._item_dense), config.hidden_units, **tower)
         if config.logq_correction:  # a uniform prior
             self.register_buffer("feedid_freq", torch.ones(schema.vocab_sizes["feedid"]))
+        self.mesh = None  # under a process mesh the softmax spans the global batch
 
     def user_embedding(self, batch) -> torch.Tensor:
         """(B, output_dim) L2-normalised user vector."""
@@ -125,17 +132,32 @@ class TwoTower(nn.Module):
         logit = (u * v).sum(dim=-1) / cfg.temperature  # (B,)
         losses = {}
         if cfg.softmax_weight > 0 and "labels" in batch:
-            scores = (u @ v.T) / cfg.temperature  # (B, B)
             feed = batch["feedid"].reshape(-1)
+            y = batch["labels"][:, self.schema.labels.index("read_comment")].to(u.dtype)
+            mesh = self.mesh
+            if mesh is not None and mesh.data_size > 1:
+                # the candidates are the global batch's items, with their
+                # gradient; this rank's loss share makes the trainer's mean
+                # over data shards the global loss
+                d, size, group = mesh.data_index, mesh.data_size, mesh.data_group
+                v_all = multihost.gather_rows(v, group, size, d, replicated=False)
+                feed_all = multihost.all_gather_rows(feed, group, size)
+                y_sum = multihost.all_reduce_sum(y.sum(), group)
+                share = float(size)
+            else:
+                d, v_all, feed_all, y_sum, share = 0, v, feed, y.sum(), 1.0
+            scores = (u @ v_all.T) / cfg.temperature  # (B, B_global)
             if cfg.logq_correction:
-                scores = scores - self._log_q(feed)[None, :]
-            same = feed[:, None] == feed[None, :]
-            eye = torch.eye(len(feed), dtype=torch.bool, device=feed.device)
+                scores = scores - self._log_q(feed_all)[None, :]
+            same = feed[:, None] == feed_all[None, :]
+            own = torch.arange(len(feed), device=feed.device) + d * len(feed)
+            eye = torch.zeros_like(same)
+            eye[torch.arange(len(feed), device=feed.device), own] = True
             scores = torch.where(same & ~eye, torch.full_like(scores, -1e9), scores)
             logp = torch.log_softmax(scores, dim=-1)
-            y = batch["labels"][:, self.schema.labels.index("read_comment")].to(logp.dtype)
             # only clicked (positive) pairs anchor a softmax row
-            loss = -(logp.diagonal() * y).sum() / y.sum().clamp(min=1.0)
+            loss = -(logp[torch.arange(len(feed), device=feed.device), own] * y).sum() \
+                * share / y_sum.clamp(min=1.0)
             losses["in_batch_softmax"] = cfg.softmax_weight * loss
         return {"read_comment": logit}, losses
 

@@ -33,6 +33,7 @@ from torch import nn
 
 from recalgorithm_tpu_torch.embed.cross import hashed_cross
 from recalgorithm_tpu_torch.embed.tables import EmbeddingCollection, TableSpec
+from recalgorithm_tpu_torch.parallel import multihost
 from recalgorithm_tpu_torch.features.schema import Schema
 from recalgorithm_tpu_torch.models import common
 from recalgorithm_tpu_torch.models.dcn import wd_embedder
@@ -83,6 +84,9 @@ class WideAndDeep(nn.Module):
                       + self.wide_bias[0])
         if self.training:
             kernel = self.wide_embed_w.tables[name][:, 0].detach().clone()
+            mesh = self.wide_embed_w.mesh
+            if mesh is not None:  # the whole row-sharded kernel, as JAX gathers it
+                kernel = multihost.all_gather_rows(kernel, None, mesh.world)
             self.sown = {"wide_part_kernel": kernel,
                          "wide_part_kernel_l2_norm": kernel.square().sum().sqrt()}
         deep_in = torch.cat([batch["dense"], *self.embedder(batch)], dim=-1)

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from recalgorithm_tpu_torch.parallel import multihost
+
 
 def leakyrelu(x: torch.Tensor, leak: float = 0.01) -> torch.Tensor:
     """Abs-trick leaky ReLU (reference leakyrelu.py:14-16)."""
@@ -31,13 +33,31 @@ class BatchNorm(nn.BatchNorm1d):
     """``nn.BatchNorm1d`` whose training step updates the running statistics
     as flax does: ``running_var`` takes the *biased* batch variance (the one
     that normalised the batch), where torch's own update takes the unbiased
-    one.  Eval reads the running statistics, as torch does."""
+    one.  Eval reads the running statistics, as torch does.
+
+    Under a process mesh with several data shards (``mesh``, set by the
+    trainer) the batch statistics are the global batch's, as the JAX
+    BatchNorm's are under a mesh: one differentiable all_reduce of the sum
+    and the sum of squares over the data group, and flax's variance
+    ``max(E[x^2] - E[x]^2, 0)``; the running statistics then update alike on
+    every rank."""
+
+    mesh = None
+
+    def _batch_stats(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        mesh = self.mesh
+        if mesh is None or mesh.data_size == 1:
+            return x.mean(dim=0), x.var(dim=0, unbiased=False)
+        sums = multihost.sum_over(torch.stack([x.sum(dim=0), (x * x).sum(dim=0)]),
+                                  mesh.data_group)
+        n = x.shape[0] * mesh.data_size
+        mean = sums[0] / n
+        return mean, (sums[1] / n - mean * mean).clamp(min=0.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(dim=0)
-        var = x.var(dim=0, unbiased=False)
+        mean, var = self._batch_stats(x)
         with torch.no_grad():
             self.running_mean.lerp_(mean.detach(), self.momentum)
             self.running_var.lerp_(var.detach(), self.momentum)

@@ -8,6 +8,14 @@ batched matmul instead of E small ones); the parameter keeps the flax name
 Dense's).  In train mode a gate keeps the batch mean of its weights, which
 the models hand to the trainer's summaries (``model.sown``) as the JAX gates
 sow them into ``summaries``.
+
+Under a process mesh (the trainer calls :meth:`ExpertGroup.shard_`) a group
+whose E divides the model axis keeps E / model experts on each rank of a
+data row, and the rank's expert outputs are gathered over the row with a
+differentiable all-gather before the gates mix them (the JAX package's
+expert parallelism, there derived by the partitioner); a group whose E does
+not divide stays whole on every rank.  A gate's ``gate_mean`` is then the
+global batch's mean.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ import torch
 from torch import nn
 
 from recalgorithm_tpu_torch.ops.mlp import Dense, MLPTower, glorot_param
+from recalgorithm_tpu_torch.parallel import mesh as mesh_lib
+from recalgorithm_tpu_torch.parallel import multihost
 
 
 class ExpertGroup(nn.Module):
@@ -31,12 +41,36 @@ class ExpertGroup(nn.Module):
         super().__init__()
         self.kernel = glorot_param(num_experts, in_dim, hidden_units, generator=generator)
         self.bias = nn.Parameter(torch.zeros(num_experts, hidden_units))
+        self.mesh = None  # set by shard_ when the experts are split over ranks
+
+    def shard_(self, mesh) -> dict[str, str]:
+        """Keep this rank's ``E / model`` experts when E divides the model
+        axis (and it is larger than 1); otherwise stay whole.  Returns the
+        parameter names it split, each ``mesh_lib.EXPERT``."""
+        m = mesh.num_model
+        e = self.kernel.shape[0]
+        if m == 1 or e % m:
+            return {}
+        lo, hi = mesh.model_index * e // m, (mesh.model_index + 1) * e // m
+        for p in (self.kernel, self.bias):
+            p.data = p.data[lo:hi].clone()
+        self.mesh = mesh
+        return {"kernel": mesh_lib.EXPERT, "bias": mesh_lib.EXPERT}
 
     def weights(self) -> tuple[torch.Tensor, torch.Tensor]:
         return self.kernel, self.bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return run_experts(x, self.kernel, self.bias)
+        """(B, in) -> (B, E, H).  Sharded: this rank's experts run on ``x``
+        and their outputs are gathered over the data row; ``x``'s gradient
+        through the experts is summed over the row, since each rank's
+        experts see only their own part of it."""
+        if self.mesh is None:
+            return run_experts(x, self.kernel, self.bias)
+        mesh = self.mesh
+        h = run_experts(multihost.sum_grads(x, mesh.model_group), self.kernel, self.bias)
+        return multihost.gather_rows(h.transpose(0, 1), mesh.model_group, mesh.num_model,
+                                     mesh.model_index, replicated=True).transpose(0, 1)
 
 
 def run_experts(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -45,7 +79,11 @@ def run_experts(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> to
 
 
 def stacked_experts(x: torch.Tensor, groups: Sequence[ExpertGroup]) -> torch.Tensor:
-    """Every group's experts as one einsum: (B, sum E, H), slots in group order."""
+    """Every group's experts as one einsum: (B, sum E, H), slots in group
+    order.  With a group sharded over a process mesh each group runs on its
+    own (:meth:`ExpertGroup.forward`)."""
+    if any(g.mesh is not None for g in groups):
+        return torch.cat([g(x) for g in groups], dim=1)
     kernels, biases = zip(*(g.weights() for g in groups))
     return run_experts(x, torch.cat(kernels, dim=0), torch.cat(biases, dim=0))
 
@@ -59,11 +97,15 @@ class SoftmaxGate(Dense):
                  generator: torch.Generator | None = None):
         super().__init__(in_dim, num_experts, generator, bias=False)
         self.gate_mean: torch.Tensor | None = None
+        self.mesh = None  # the global batch's mean under a process mesh
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gate = torch.softmax(super().forward(x), dim=-1)
         if self.training:
-            self.gate_mean = gate.detach().mean(dim=0)
+            mean = gate.detach().mean(dim=0)
+            if self.mesh is not None and self.mesh.data_size > 1:
+                mean = multihost.all_reduce_sum(mean, self.mesh.data_group) / self.mesh.data_size
+            self.gate_mean = mean
         return gate
 
 

@@ -13,9 +13,10 @@ Usage:
 
 ``quantize_corpus=True`` keeps the corpus as per-row int8 with f32 scales
 (4x less memory), picks candidates by an int8 x int8 coarse score and
-rescores ``k * overfetch`` of them exactly (:func:`quantized_top_k`).  The
-JAX package's ``sharded_top_k`` (the corpus sharded over a mesh) needs a
-process group and is not ported.
+rescores ``k * overfetch`` of them exactly (:func:`quantized_top_k`).
+``Retriever(..., mesh=...)`` scores with :func:`sharded_top_k` instead: the
+corpus rows sharded over every rank of a process mesh, one all-gather of the
+candidates.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from recalgorithm_tpu_torch.parallel import multihost
 from recalgorithm_tpu_torch.serving.predictor import resolve_device
 from recalgorithm_tpu_torch.serving.quantize import quantize_table
 
@@ -41,6 +43,33 @@ def brute_force_top_k(user_vecs: torch.Tensor, corpus: torch.Tensor, k: int
     emit L2-normalised vectors, so this is the cosine, monotone in the
     serving temperature."""
     return torch.topk(user_vecs @ corpus.T, k, dim=-1)
+
+
+def sharded_top_k(user_vecs: torch.Tensor, corpus: torch.Tensor, k: int, mesh
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k with the corpus rows sharded over every rank of ``mesh``
+    (the tables' layout): each rank scores the (B, D) users, the same on
+    every rank, against its ``[r n, (r+1) n)`` rows of the corpus padded to
+    a multiple of the rank count (padding rows score -inf), takes a local
+    top-k capped at its shard's size, and one all-gather of the (B, N k)
+    candidates feeds the merge.  Exact, because every global winner is a
+    winner on its own shard.  Returns (B, k) scores and global row indices,
+    the same on every rank (collective)."""
+    n = corpus.shape[0]
+    k = min(k, n)  # no more rows than the corpus holds
+    n_loc = -(-n // mesh.world)
+    k_loc = min(k, n_loc)
+    base = mesh.rank * n_loc
+    rows = corpus[base:base + n_loc]
+    scores = user_vecs @ rows.T  # (B, rows on this shard)
+    if rows.shape[0] < n_loc:  # the padding rows can never win
+        scores = torch.cat([scores, scores.new_full(
+            (scores.shape[0], n_loc - rows.shape[0]), float("-inf"))], dim=1)
+    s, i = torch.topk(scores, k_loc, dim=-1)
+    cand_s = multihost.all_gather_rows(s.T, None, mesh.world).T  # (B, N k_loc)
+    cand_i = multihost.all_gather_rows((base + i).T, None, mesh.world).T
+    out_s, pos = torch.topk(cand_s, k, dim=-1)
+    return out_s, torch.gather(cand_i, 1, pos)
 
 
 def _quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -85,10 +114,16 @@ class Retriever:
 
     ``model`` exposes ``user_embedding`` / ``item_embedding`` (TwoTower) and
     holds its weights; it is moved to ``device`` (``cuda`` unless the caller
-    asks for the CPU; raises without a card) and put in eval mode."""
+    asks for the CPU; raises without a card) and put in eval mode.  With a
+    process ``mesh`` scoring is :func:`sharded_top_k` (every rank of the mesh
+    retrieves the same users at once); it excludes ``quantize_corpus``."""
 
     def __init__(self, model: nn.Module, device: str | torch.device | None = None,
-                 serve_k: int = 100, quantize_corpus: bool = False, overfetch: int = 4):
+                 serve_k: int = 100, quantize_corpus: bool = False, overfetch: int = 4,
+                 mesh=None):
+        if quantize_corpus and mesh is not None:
+            raise ValueError("quantize_corpus and mesh are mutually exclusive")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.serve_k = serve_k
@@ -187,6 +222,8 @@ class Retriever:
         if self.quantize_corpus:
             scores, idx = quantized_top_k(u, self.corpus_q, self.corpus_scale, k,
                                           self.overfetch)
+        elif self.mesh is not None:
+            scores, idx = sharded_top_k(u, self.corpus, k, self.mesh)
         else:
             scores, idx = brute_force_top_k(u, self.corpus, k)
         return self.corpus_ids[idx.cpu().numpy()], scores.cpu().numpy()

@@ -25,9 +25,23 @@ Responsibilities (the reference's Estimator usage, wide_and_deep.py:331-376):
     the metrics update on every micro-batch, and ``step`` counts
     micro-batches.  The accumulator is checkpointed with the rest.
 
-Not ported yet: the mesh (multi-device), the compact gradient scatter (its
-torch counterpart, the gather's backward, is exact at every density), the
-TPU compiler options and ``rng_impl``.
+Several processes (``mesh``, a ``parallel/mesh.ProcessMesh``): the model's
+tables are row-sharded and its divisible expert groups split over the model
+axis (``mesh.shard_model``); each rank trains on its data shard's rows and
+backpropagates its local-mean loss.  Then replicated parameters' gradients
+are averaged over all ranks, expert shards' over their data column, and a
+table shard's gradient, which the exchange's backward already summed over
+every data shard, is divided by the data shard count: every gradient is the
+global batch mean's.  The metrics are summed over the data column before
+they are reported, the ``eval_throttle_secs`` decision is rank 0's,
+``predict`` returns the global rows on every rank, and checkpoints and best
+exports gather the whole state to rank 0, which writes the one-process
+layout (every rank restores from it and takes its shard).  Each data shard
+draws its own dropout stream; the ranks of a data row draw the same.
+
+Not ported yet: the compact gradient scatter (its torch counterpart, the
+gather's backward, is exact at every density), the TPU compiler options and
+``rng_impl``.
 
 Data contract: iterables of host batches (dict[str, np.ndarray]) with fixed
 shapes; an optional ``"_weights"`` (B,) 0/1 mask marks real rows in padded
@@ -47,10 +61,13 @@ from typing import Callable, Iterable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from recalgorithm_tpu_torch import convert
 from recalgorithm_tpu_torch.ops.activations import Dropout
+from recalgorithm_tpu_torch.parallel import mesh as mesh_lib
+from recalgorithm_tpu_torch.parallel import multihost
 from recalgorithm_tpu_torch.serving.predictor import resolve_device
 from recalgorithm_tpu_torch.train import metrics as M
 from recalgorithm_tpu_torch.utils.summary import SummaryWriter
@@ -100,16 +117,31 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, model: torch.nn.Module, task_names: tuple[str, ...],
                  optimizer: Callable, config: TrainerConfig,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None,
+                 global_batch_size: int | None = None):
         """``optimizer`` is a factory of the parameters (``optimizers.build``,
         ``optimizers.dual_wide_deep``);
-        ``device`` defaults to ``cuda`` and raises without a card."""
+        ``device`` defaults to ``cuda`` and raises without a card.  With a
+        ``mesh`` the whole ``model`` is sharded onto it here (every rank
+        builds the same model from the same seed, or loads whole weights
+        first); ``device`` is this rank's, and ``global_batch_size`` (required
+        then) the rows of a train step over all data shards: every train step
+        checks that this rank holds its share of them."""
+        if mesh is not None and global_batch_size is None:
+            raise ValueError("a Trainer on a mesh needs the global batch size")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.global_batch_size = global_batch_size
+        # what each state_dict entry is on this rank (mesh.shard_model); one
+        # process holds everything whole
+        self.specs = (mesh_lib.shard_model(model, mesh) if mesh is not None
+                      else dict.fromkeys(model.state_dict(), mesh_lib.REPLICATED))
         self.model = model.to(self.device)
         self.task_names = tuple(task_names)
         self.config = config
         self.optimizer = optimizer(list(self.model.parameters()))
-        self.generator = torch.Generator(device=self.device).manual_seed(config.seed + 1)
+        stream = config.seed + 1 + (mesh.data_index if mesh is not None else 0)
+        self.generator = torch.Generator(device=self.device).manual_seed(stream)
         for m in self.model.modules():
             if isinstance(m, Dropout):
                 m.generator = self.generator
@@ -130,9 +162,15 @@ class Trainer:
 
     # -- steps ---------------------------------------------------------------
 
-    def _put_batch(self, batch: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device)
-                for k, v in batch.items() if k in self._inputs}
+    def _put_batch(self, batch: Mapping[str, np.ndarray],
+                   global_rows: int | None = None) -> dict[str, torch.Tensor]:
+        """The model's columns of a host batch on the device; under a mesh
+        with ``global_rows``, checked to be this rank's share of a global
+        batch of that many rows."""
+        batch = {k: v for k, v in batch.items() if k in self._inputs}
+        if self.mesh is not None and global_rows is not None:
+            return multihost.global_batch(batch, self.mesh, global_rows, self.device)
+        return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
 
     def _task_label(self, batch, task: str) -> torch.Tensor:
         """A task's label column; a model may derive a joint label (ESMM's
@@ -184,13 +222,44 @@ class Trainer:
             float(batch["labels"].shape[0]), device=self.device)
         return MetricsState(M.mean_update(state.loss_mean, loss[None], n[None]), tms)
 
+    def _reduce_grads(self, loss: torch.Tensor) -> torch.Tensor:
+        """Under a mesh: every gradient to the global batch mean's (module
+        docstring), in one all_reduce over all ranks and, with expert
+        shards, one over the data column.  Returns the global mean loss,
+        which rides the first all_reduce."""
+        mesh = self.mesh
+        replicated, experts = [loss.detach().reshape(1)], []
+        for name, p in self.model.named_parameters():
+            if p.grad is None:
+                continue
+            spec = self.specs[name]
+            if spec == mesh_lib.TABLE:
+                p.grad.div_(mesh.data_size)
+            elif spec == mesh_lib.EXPERT and mesh.num_model > 1:
+                experts.append(p.grad)
+            else:
+                replicated.append(p.grad)
+        for grads, group, n in ((replicated, None, mesh.world),
+                                (experts, mesh.data_group, mesh.data_size)):
+            if not grads:
+                continue
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=group)
+            flat.div_(n)
+            for g, part in zip(grads, torch.split(flat, [g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
+        return replicated[0][0]
+
     def train_step(self, host_batch: Mapping[str, np.ndarray]) -> torch.Tensor:
-        """One optimizer step on a host batch; returns the loss (on the device)."""
-        batch = self._put_batch(host_batch)
+        """One optimizer step on a host batch; returns the loss (on the
+        device; under a mesh the global batch's)."""
+        batch = self._put_batch(host_batch, self.global_batch_size)
         self.model.train()
         loss, logits = self._loss_and_logits(batch)
         self.optimizer.zero_grad()
         loss.backward()
+        if self.mesh is not None:
+            global_loss = self._reduce_grads(loss)
         k = self.config.grad_accum_steps
         if k == 1:
             self.optimizer.step()
@@ -211,12 +280,20 @@ class Trainer:
         loss = loss.detach()
         self.metrics = self._update_metrics(
             self.metrics, batch, {t: v.detach() for t, v in logits.items()}, loss)
-        return loss
+        return loss if self.mesh is None else global_loss
 
     # -- metric reporting ----------------------------------------------------
 
-    @staticmethod
-    def _metrics_snapshot(state: MetricsState) -> dict[str, float]:
+    def _metrics_snapshot(self, state: MetricsState) -> dict[str, float]:
+        """The reported metrics; under a mesh the data column's states are
+        summed first (collective), so they are the global batch's."""
+        if self.mesh is not None and self.mesh.data_size > 1:
+            parts: list[torch.Tensor] = []
+            _map_tensors(state, lambda t: parts.append(t) or t)
+            flat = multihost.all_reduce_sum(torch.cat([t.reshape(-1) for t in parts]),
+                                            self.mesh.data_group)
+            pieces = iter(torch.split(flat, [t.numel() for t in parts]))
+            state = _map_tensors(state, lambda t: next(pieces).view_as(t))
         out = {"loss": float(M.mean_compute(state.loss_mean))}
         for task, tm in state.task_metrics.items():
             out[f"{task}_auc"] = float(M.auc_compute(tm.auc))
@@ -253,6 +330,29 @@ class Trainer:
         if console:
             log_fn(f"step {step} summaries: " + " ".join(console))
 
+    def _time_eval_due(self, step: int, last_eval_time: float) -> bool:
+        """Whether the wall-clock eval throttle fires at this step.  Under a
+        mesh the check runs only every ``log_every`` steps, where every rank
+        is, and rank 0's clock decides for all (clocks drift: ranks that
+        disagree would enter different collectives)."""
+        cfg = self.config
+        if not cfg.eval_throttle_secs:
+            return False
+        due = time.time() - last_eval_time >= cfg.eval_throttle_secs
+        if self.mesh is None:
+            return due
+        if step % cfg.log_every:
+            return False
+        return multihost.agreed_flag(due)
+
+    def full_state_dict(self) -> dict[str, torch.Tensor]:
+        """The whole model state dict (under a mesh gathered from every
+        rank's shards: collective)."""
+        sd = self.model.state_dict()
+        if self.mesh is None:
+            return sd
+        return mesh_lib.gather_state_dict(sd, self.specs, self.mesh)
+
     # -- public API ----------------------------------------------------------
 
     def evaluate(self, eval_batches: Iterable[Mapping[str, np.ndarray]]) -> dict[str, float]:
@@ -273,18 +373,32 @@ class Trainer:
         ``collect`` names extra batch columns (labels, ``_index``, id
         columns) returned row-aligned with the probabilities, read from the
         host batch; with a non-empty ``collect`` the return is
-        ``(probs, collected)``."""
-        outs: dict[str, list[np.ndarray]] = {t: [] for t in self.task_names}
-        extras: dict[str, list[np.ndarray]] = {k: [] for k in collect}
+        ``(probs, collected)``.  Under a mesh every rank returns the global
+        rows: each batch's data shards in rank order (one collective at the
+        end; every rank predicts the same number of batches)."""
+        local = []
         self.model.eval()
         with torch.no_grad():
             for hb in batches:
                 logits, _ = self.model(self._put_batch(hb))
-                keep = np.asarray(hb["_weights"]) > 0 if "_weights" in hb else slice(None)
+                keep = (np.asarray(hb["_weights"]) > 0 if "_weights" in hb
+                        else np.ones(len(next(iter(hb.values()))), bool))
+                local.append(({t: torch.sigmoid(logits[t]).cpu().numpy() for t in self.task_names},
+                              {k: np.asarray(hb[k]) for k in collect}, keep))
+        shards = [local]
+        if self.mesh is not None and self.mesh.data_size > 1:
+            shards = [None] * self.mesh.data_size
+            dist.all_gather_object(shards, local, group=self.mesh.data_group)
+            if len({len(s) for s in shards}) != 1:
+                raise RuntimeError(f"data shards predicted {[len(s) for s in shards]} batches")
+        outs: dict[str, list[np.ndarray]] = {t: [] for t in self.task_names}
+        extras: dict[str, list[np.ndarray]] = {k: [] for k in collect}
+        for parts in zip(*shards):
+            for probs, cols, keep in parts:
                 for t in self.task_names:
-                    outs[t].append(torch.sigmoid(logits[t]).cpu().numpy()[keep])
+                    outs[t].append(probs[t][keep])
                 for k in collect:
-                    extras[k].append(np.asarray(hb[k])[keep])
+                    extras[k].append(cols[k][keep])
         probs = {t: np.concatenate(v) if v else np.empty((0,), np.float32)
                  for t, v in outs.items()}
         if not collect:
@@ -304,7 +418,8 @@ class Trainer:
         cfg = self.config
         checkpointer = _Checkpointer(cfg.model_dir)
         checkpointer.restore_latest(self)
-        summary = SummaryWriter(os.path.join(cfg.model_dir, "summaries"))
+        summary = SummaryWriter(os.path.join(cfg.model_dir, "summaries"),
+                                enabled=multihost.process_index() == 0)
 
         # preemption notice (SIGTERM): finish the step in flight, save, skip
         # the final eval.  Installs only in the main thread; restored on return.
@@ -328,8 +443,8 @@ class Trainer:
                 step = self.step
                 if step % cfg.log_every == 0 and step != last_log_step:
                     snap = self._metrics_snapshot(self.metrics)
-                    rate = ((step - last_log_step) * len(hb["labels"])
-                            / max(time.time() - t0, 1e-9))
+                    rows = len(hb["labels"]) * (self.mesh.data_size if self.mesh else 1)
+                    rate = (step - last_log_step) * rows / max(time.time() - t0, 1e-9)
                     log_fn(f"step {step} loss={snap['loss']:.5f} "
                            + " ".join(f"{t}_auc={snap[f'{t}_auc']:.5f}"
                                       for t in self.task_names)
@@ -341,8 +456,7 @@ class Trainer:
                 if cfg.save_checkpoints_steps and step % cfg.save_checkpoints_steps == 0:
                     checkpointer.save(self)
                 due_steps = cfg.eval_every_steps and step % cfg.eval_every_steps == 0
-                due_time = (cfg.eval_throttle_secs
-                            and time.time() - last_eval_time >= cfg.eval_throttle_secs)
+                due_time = self._time_eval_due(step, last_eval_time)
                 if eval_batches_fn is not None and (due_steps or due_time):
                     ev = self.evaluate(eval_batches_fn())
                     last_eval_time = time.time()
@@ -373,14 +487,50 @@ def latest_checkpoint_step(model_dir: str) -> int:
     return steps[-1] if steps else 0
 
 
+def _map_tensors(obj, fn):
+    """``obj`` (dataclasses and dicts of tensors) with ``fn`` applied to each
+    tensor, in field order."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: _map_tensors(v, fn) for k, v in obj.items()}
+    return dataclasses.replace(obj, **{f.name: _map_tensors(getattr(obj, f.name), fn)
+                                       for f in dataclasses.fields(obj)})
+
+
+def _optimizer_state(trainer: Trainer, sd: dict, fn) -> dict:
+    """``sd``, a state dict of ``trainer.optimizer``, with ``fn(tensor,
+    spec)`` applied to each parameter's state tensors (not the 0-d counts),
+    ``spec`` being the parameter's (``trainer.specs``).  ``sd``'s
+    per-parameter dicts are replaced, not changed (``state_dict()`` shares
+    them with the live state)."""
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    parts = getattr(trainer.optimizer, "parts", None)
+    pairs = ([(sd[k], o) for k, o in parts.items()] if parts is not None
+             else [(sd, trainer.optimizer)])
+    for packed, opt in pairs:
+        params = [p for g in opt.opt.param_groups for p in g["params"]]
+        state = packed["opt"]["state"]
+        for idx, st in list(state.items()):
+            spec = trainer.specs[names[id(params[idx])]]
+            state[idx] = {k: fn(v, spec) if torch.is_tensor(v) and v.dim() > 0 else v
+                          for k, v in st.items()}
+    return sd
+
+
 class _Checkpointer:
     """``torch.save`` checkpoints (the last CHECKPOINTS_KEPT kept) and the
-    best-AUC exporter."""
+    best-AUC exporter.  Under a mesh every rank calls each method at the
+    same point: the whole state is gathered to rank 0, which alone writes,
+    and every rank restores from the one file and takes its shard."""
 
     def __init__(self, model_dir: str):
         self.model_dir = os.path.abspath(model_dir)
         self.dir = os.path.join(self.model_dir, "checkpoints")
+        self.writer = multihost.process_index() == 0
         os.makedirs(self.dir, exist_ok=True)
+        # the keep-or-evict bookkeeping runs alike on every rank, from one read
+        self.best = convert.read_best(self.model_dir)
 
     @staticmethod
     def steps(ckpt_dir: str) -> list[int]:
@@ -393,14 +543,27 @@ class _Checkpointer:
         return os.path.join(self.dir, f"ckpt_{step}.pt")
 
     def save(self, trainer: Trainer) -> None:
+        mesh = trainer.mesh
+        generator = trainer.generator.get_state()
+        if mesh is None:
+            model, opt, accum, generators = (trainer.model.state_dict(),
+                                              trainer.optimizer.state_dict(), trainer.accum, None)
+        else:
+            model = trainer.full_state_dict()
+            opt = _optimizer_state(trainer, trainer.optimizer.state_dict(),
+                                   lambda t, spec: mesh_lib.gather_tensor(t, spec, mesh))
+            names = [n for n, _ in trainer.model.named_parameters()]
+            accum = [mesh_lib.gather_tensor(a, trainer.specs[n], mesh)
+                     for n, a in zip(names, trainer.accum)]
+            generators = [None] * mesh.world
+            dist.all_gather_object(generators, generator)
+        if not self.writer:
+            return
         path = self._path(trainer.step)
         tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save({"model": trainer.model.state_dict(),
-                    "optimizer": trainer.optimizer.state_dict(),
-                    "step": trainer.step,
-                    "generator": trainer.generator.get_state(),
-                    "mini_step": trainer.mini_step,
-                    "accum": trainer.accum}, tmp)
+        torch.save({"model": model, "optimizer": opt, "step": trainer.step,
+                    "generator": generator, "generators": generators,
+                    "mini_step": trainer.mini_step, "accum": accum}, tmp)
         os.replace(tmp, path)  # atomic: a reader never sees half a checkpoint
         for old in self.steps(self.dir)[:-CHECKPOINTS_KEPT]:
             os.remove(self._path(old))
@@ -410,11 +573,23 @@ class _Checkpointer:
         if not steps:
             return
         ck = torch.load(self._path(steps[-1]), map_location="cpu", weights_only=True)
-        trainer.model.load_state_dict(ck["model"])
-        trainer.optimizer.load_state_dict(ck["optimizer"])
+        model, opt, accum = ck["model"], ck["optimizer"], ck.get("accum", [])
+        generator = ck["generator"]
+        mesh = trainer.mesh
+        if mesh is not None:
+            model = mesh_lib.shard_state_dict(model, trainer.specs, mesh)
+            opt = _optimizer_state(trainer, opt,
+                                   lambda t, spec: mesh_lib.shard_tensor(t, spec, mesh))
+            names = [n for n, _ in trainer.model.named_parameters()]
+            accum = [mesh_lib.shard_tensor(a, trainer.specs[n], mesh)
+                     for n, a in zip(names, accum)]
+            generators = ck.get("generators")
+            if generators is not None and len(generators) == mesh.world:
+                generator = generators[mesh.rank]
+        trainer.model.load_state_dict(model)
+        trainer.optimizer.load_state_dict(opt)
         trainer.step = int(ck["step"])
-        trainer.generator.set_state(ck["generator"])
-        accum = ck.get("accum", [])
+        trainer.generator.set_state(generator)
         if len(accum) != len(trainer.accum):
             raise ValueError(f"checkpoint {steps[-1]} was written with another "
                              "grad_accum_steps than this run's")
@@ -423,9 +598,14 @@ class _Checkpointer:
             acc.copy_(saved)
 
     def maybe_export_best(self, trainer: Trainer, auc: float) -> None:
-        """Keep the BEST_EXPORTS_KEPT highest-AUC exports (BestExporter parity)."""
-        best = convert.read_best(self.model_dir)
-        if len(best) >= BEST_EXPORTS_KEPT and auc <= min(a for a, _ in best):
+        """Keep the BEST_EXPORTS_KEPT highest-AUC exports (BestExporter parity).
+        The decision is the same on every rank (the same AUC and list), so
+        every rank enters the gather or none does."""
+        keep = BEST_EXPORTS_KEPT
+        if len(self.best) >= keep and auc <= min(a for a, _ in self.best):
             return
-        convert.save_export(self.model_dir, trainer.step, auc, trainer.model,
-                            keep=BEST_EXPORTS_KEPT)
+        full = trainer.full_state_dict()
+        self.best = sorted(set(self.best) | {(auc, trainer.step)}, reverse=True)[:keep]
+        if self.writer:
+            convert.save_export(self.model_dir, trainer.step, auc, trainer.model,
+                                keep=keep, state_dict=full)

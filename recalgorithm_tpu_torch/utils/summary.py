@@ -19,11 +19,16 @@ from typing import Mapping
 class SummaryWriter:
     """JSONL scalar and histogram sink."""
 
-    def __init__(self, log_dir: str):
-        os.makedirs(log_dir, exist_ok=True)
-        self._f = open(os.path.join(log_dir, "scalars.jsonl"), "a", buffering=1)
+    def __init__(self, log_dir: str, enabled: bool = True):
+        """``enabled=False`` (a process other than 0 of several) writes nothing."""
+        self._f = None
+        if enabled:
+            os.makedirs(log_dir, exist_ok=True)
+            self._f = open(os.path.join(log_dir, "scalars.jsonl"), "a", buffering=1)
 
     def scalars(self, step: int, values: Mapping[str, float]) -> None:
+        if self._f is None:
+            return
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in values.items()})
         self._f.write(json.dumps(rec) + "\n")
@@ -31,6 +36,8 @@ class SummaryWriter:
     def histogram(self, step: int, tag: str, values, bins: int = 30) -> None:
         """tf.summary.histogram parity: binned counts and moments, one JSONL
         record."""
+        if self._f is None:
+            return
         import numpy as np
 
         v = np.asarray(values, dtype=np.float64).ravel()
@@ -45,7 +52,8 @@ class SummaryWriter:
         self._f.write(json.dumps(rec) + "\n")
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 @contextlib.contextmanager

@@ -20,6 +20,8 @@ from recalgorithm_tpu_torch.ops.cuda import bst_attention as bkern
 from recalgorithm_tpu_torch.ops.cuda import din_attention as tkern
 from recalgorithm_tpu_torch.ops.interactions import InteractingLayer
 
+from torch_dist_common import result, run_world
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 T, H = 50, 16
 
@@ -317,3 +319,23 @@ def test_cpu_exported_artifact_moved_to_cuda_launches_the_kernels(cuda, tmp_path
     assert counter.launches == n + 1
     assert all(t.device.type == "cuda" for t in pred.program.state_dict.values())
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.cuda
+def test_sharded_lookup_on_cuda_over_gloo(cuda, tmp_path):
+    """Two ranks sharing the card over gloo (NCCL refuses two ranks on one
+    device), the table shards and ids CUDA tensors: the exchange's forward is
+    the plain gather and its table gradient the scatter-add of 2 x out."""
+    rng = np.random.default_rng(0)
+    table = rng.normal(size=(256, 16)).astype(np.float32)
+    ids = rng.integers(0, 256, size=(64,)).astype(np.int32)
+    np.savez(tmp_path / "lookup.npz", table=table, ids=ids,
+             ids_odd=rng.integers(0, 256, size=(4, 7)).astype(np.int32),
+             rule_ids=rng.integers(0, 3000, 64).astype(np.int32))
+    out = run_world(tmp_path, "lookup_cuda", 2, tmp_path)
+    grad = np.zeros_like(table)
+    np.add.at(grad, ids, 2 * table[ids])
+    for rank in (0, 1):
+        r = result(out, "lookup_m1", rank)
+        np.testing.assert_array_equal(r["plain/forward"], table[ids])
+        np.testing.assert_allclose(r["plain/grad"], grad, rtol=1e-6, atol=1e-6)

@@ -33,3 +33,35 @@ def test_port_imports_no_jax():
     n, bad = out.stdout.strip().split(" ", 1)
     assert bad == "[]", bad
     assert int(n) >= 20  # every module of the slice was imported
+
+
+_SEVERAL = r"""
+import sys
+import recalgorithm_tpu_torch.embed.sharded
+import recalgorithm_tpu_torch.parallel.mesh
+import recalgorithm_tpu_torch.parallel.multihost
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                                           "recalgorithm_tpu"))
+print(bad)
+"""
+
+
+def test_several_process_modules_import_no_jax():
+    """parallel/ and embed/sharded.py, alone: no jax, flax or JAX-package
+    import when loaded, and none in their sources."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _SEVERAL], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]", out.stdout
+    pkg = os.path.join(REPO, "recalgorithm_tpu_torch")
+    paths = [os.path.join(pkg, "embed", "sharded.py")] + [
+        os.path.join(pkg, "parallel", f) for f in os.listdir(os.path.join(pkg, "parallel"))
+        if f.endswith(".py")]
+    assert len(paths) >= 4
+    for path in paths:
+        with open(path) as f:
+            imports = [ln.split() for ln in f if ln.lstrip().startswith(("import ", "from "))]
+        roots = {words[1].split(".")[0] for words in imports}
+        assert not roots & {"jax", "jaxlib", "flax", "recalgorithm_tpu"}, (path, roots)

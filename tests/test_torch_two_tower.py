@@ -2,8 +2,8 @@
 the JAX model with its weights carried across (tower vectors, logits, the
 in-batch softmax with and without the log-Q correction, every gradient, the
 ``feedid_freq`` statistics), the ``convert`` round trips (``feedid_freq`` a
-buffer both ways); the cases of tests/test_retrieval.py on the port (all
-but the sharded top-k, which needs a process group): the collision mask and
+buffer both ways); the cases of tests/test_retrieval.py on the port (the
+sharded top-k's are in tests/test_torch_distributed.py): the collision mask and
 log-Q against their numpy oracles, the Retriever against numpy and the JAX
 Retriever, the int8 corpus's recall, the corpus snapshot, the batching
 server, the per-task loss weight, learning and Recall@K; ``cli.main
