@@ -7,7 +7,9 @@ Run from the repository root on a machine with one NVIDIA GPU (sm_90a: H100
 or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
 
   1. the card (nvidia-smi name and power limit); TF32 off for matmuls and
-     cuDNN, so every f32 product on the card is full f32;
+     cuDNN, so every f32 product on the card is full f32 (a bf16 product
+     sums in f32 because the port's bf16 Dense turns cuBLAS's
+     reduced-precision sums off, phase 17);
   2. build the CUDA kernels from recalgorithm_tpu_torch/csrc into build/;
   3. each kernel against its plain torch twin on the card, timed with CUDA
      events beside its bound and, for BST attention, beside
@@ -123,7 +125,28 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      order, the exact AUC and GAUC within 1e-6 of the 1-process run from the
      same checkpoint.  MMOE with 4 experts on a (data 1, model 2) mesh, 2
      experts a rank: its step held to the CPU step.  sharded_top_k over the
-     2 ranks against brute_force_top_k on TwoTower's corpus, ties aside.
+     2 ranks against brute_force_top_k on TwoTower's corpus, ties aside;
+ 17. main path 8: the JAX defaults the port lacked.  BST's held step (phase
+     8's weights and batch) with the PAD-compacted table gradient (the
+     trainer's default, ops/compact_scatter.py) and without: every gradient
+     bitwise the same (the feedid table on rows 1..), both under phase 8's
+     gate against the f64 CPU step, the same BST-kernel launches; a batch
+     whose histories are all 50 long routed to the full gradient, bitwise
+     the full path's; both steps profiled (the embedding backward's kernels,
+     busy, wall, ex/s, kernels a step); DIN through cli.main with and
+     without --no_compact_grad_scatter, exact launches.  --precision bf16
+     for BST, DIN, MMOE, PLE and DeepFM: eval logits against the same
+     weights' f32 ones (the JAX zoo test's rule) and against the CPU bf16
+     forward (a bar a model's f32 logits must exceed, where they do), the
+     port's own switch to f32 sums in cuBLAS's bf16 GEMMs, what the first
+     bf16 Dense and expert contraction returned against the CPU's, bf16
+     products counted on cuda, a few cli.main steps each with exact
+     launches; BST's bf16 step profiled.  fuse_optimizer (accepted, a
+     no-op): a BST Adam and an Adagrad update with and without it, the
+     parameters bitwise, kernels a step.  cli.sweep (a 2-point DeepFM
+     grid), data.stats on phase 13's eval split, and utils.benchmarking's
+     step timer against CUDA events around the same step, read in turns
+     (and 2 stacked steps against one).
 
 Each main path's kernel launch counts are set to 0 just before it and read
 just after: a kernel of the path that never launched fails the run.  The
@@ -285,6 +308,42 @@ MESH_EXPERTS = 4
 MESH_AUC_TOL = 1e-6
 MESH_RANK_TIMEOUT_S = 600
 MESH_BATCH_SEED = 20  # the synthetic batches of the MESH_STEPS steps
+# phase 17: the JAX defaults the port lacked.  cli.main runs of
+# DEFAULTS_STEPS steps; bf16 eval logits at B = BF16_EVAL_BATCH held to the
+# f32 ones under the JAX zoo test's rule (BF16_VS_F32 x max(1, max|logit|))
+# and to the CPU bf16 forward within the model's BF16_VS_CPU bar (same
+# scale), a bar the same weights' f32 logits on the card must exceed
+# against that CPU forward, so it tells bf16 from f32 (PLE has no such gap:
+# its f32 logits sit as close to the CPU bf16 ones as the card's bf16 do, so
+# its bar is the f32 rule's and the bf16 product counter and the first
+# product's check below carry it; PERF.md, PR 13).  The two devices' bf16
+# logits differ at all because their f32 sums differ in the last bits and
+# move products across bf16 rounding boundaries
+# (tests/test_torch_precision.py::test_bf16_under_f32_rounding_noise).  The
+# first bf16 Dense of each model returns on both devices within one bf16
+# ulp (BF16_ULP relative) for each rounding plus the f32 sums' error bound;
+# the first expert contraction within BF16_EXPERTS.  The step timer's slope
+# within TIMER_TOL of phase 8's CUDA-event measurement of the step, and 2
+# stacked steps' slope within STACKED of one's, each the median of
+# TIMER_ROUNDS interleaved rounds (the step is host-bound: its time drifts
+# with the host's load within seconds, so the two clocks are read in turns;
+# the limits leave room on both sides of tools/timer_repeat.py's 10
+# fresh-process runs and phase 17's own readings: 0.92-1.09 and 1.76-2.37,
+# PERF.md, PR 13)
+DEFAULTS_STEPS = 4
+BF16_MODELS = ("BST", "DIN", "MMOE", "PLE", "DeepFM")
+BF16_EVAL_BATCH = 1024
+BF16_VS_F32 = 0.01
+BF16_VS_CPU = {"BST": 3e-3, "DIN": 3.5e-3, "MMOE": 7e-4, "PLE": BF16_VS_F32, "DeepFM": 8e-5}
+BF16_NO_GAP = ("PLE",)
+BF16_ULP = 2.0 ** -7
+BF16_EXPERTS = dict(rtol=1e-5, atol_share=1e-5)
+TIMER_K = (2, 14)
+TIMER_ROUNDS = 7
+TIMER_TOL = 0.25
+STACKED = (1.5, 2.7)
+# the embedding backward's kernels (sort, segment sums, scatter), by name
+TABLE_GRAD_KERNELS = ("embedding", "segment", "grad_weight", "sum_and_scatter", "adix")
 KERNEL_OPS = {"DIN": "recalgorithm_torch.din_attention.default",
               "BST": "recalgorithm_torch.bst_mha_forward.default"}
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -582,15 +641,7 @@ def profile_train_step(trainer, batches, kernel: str | None, iters: int = STEP_I
 
     for hb in batches[:3]:
         trainer.train_step(hb)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        trainer.train_step(batches[i % len(batches)])
-    end.record()
-    end.synchronize()
-    step_ms = start.elapsed_time(end) / iters
+    step_ms = event_step_ms(trainer, batches, iters)
     walls = []
     for i in range(iters):
         t0 = time.perf_counter()
@@ -613,8 +664,22 @@ def profile_train_step(trainer, batches, kernel: str | None, iters: int = STEP_I
         raise AssertionError(f"the profiled train steps ran hand kernels: {hand}")
     return {"step_ms": step_ms, "wall_ms": float(np.median(walls)) * 1e3,
             "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / step_ms,
-            "device_ops_per_step": len(events) / iters,
+            "device_ops_per_step": len(events) / iters, "by_name": dict(by_name),
             "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]}
+
+
+def event_step_ms(trainer, batches, iters: int) -> float:
+    """Device ms of one train step: CUDA events around ``iters`` steps
+    launched back to back (the steady pipeline, host gaps included)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        trainer.train_step(batches[i % len(batches)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def golden_auc(name: str, device: str, model_dir: str,
@@ -740,8 +805,8 @@ def lookup_abs_sums(model):
     sums: dict[str, torch.Tensor] = {}
     plain = EmbeddingCollection._clip_gather
 
-    def hooked(self, table, ids):
-        out = plain(self, table, ids)
+    def hooked(self, table, ids, compact=False):
+        out = plain(self, table, ids, compact)
         if out.requires_grad:
             tab = self.tables[table]
             acc = sums.setdefault(f"{names[id(self)]}.tables.{table}", torch.zeros_like(tab))
@@ -761,13 +826,13 @@ def lookup_abs_sums(model):
 
 
 def make_trainer(name: str, schema, weights: dict, cfg, device: str, model_dir: str,
-                 mesh=None, global_rows: int | None = None):
+                 mesh=None, global_rows: int | None = None, **trainer_config):
     """A Trainer of ``name`` at ``cfg`` (its optimizer and learning rate) on
     ``device`` from ``weights``, an export's state dict (whole; sharded onto
     ``mesh`` when one is given, whose train steps take ``global_rows`` rows
-    over all ranks); keys the model does not have (a BN tower
-    that ``cfg`` leaves out) are left out, and a key the weights lack
-    fails."""
+    over all ranks), with the TrainerConfig fields ``trainer_config``; keys
+    the model does not have (a BN tower that ``cfg`` leaves out) are left
+    out, and a key the weights lack fails."""
     from recalgorithm_tpu_torch.models import get_model
     from recalgorithm_tpu_torch.train import optimizers
     from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig
@@ -779,8 +844,8 @@ def make_trainer(name: str, schema, weights: dict, cfg, device: str, model_dir: 
     model.load_state_dict({k: v for k, v in weights.items() if k in own})
     return Trainer(model, tuple(cfg.task_names) or (schema.labels[0],),
                    optimizers.build(cfg.optimizer, cfg.learning_rate),
-                   TrainerConfig(model_dir=os.path.join(model_dir, "unused")), device=device,
-                   mesh=mesh, global_batch_size=global_rows)
+                   TrainerConfig(model_dir=os.path.join(model_dir, "unused"), **trainer_config),
+                   device=device, mesh=mesh, global_batch_size=global_rows)
 
 
 def kink_free_rows(model, batch) -> torch.Tensor:
@@ -936,10 +1001,12 @@ def step_vs_cpu(name: str, best_dir: str, zero: set[str], **overrides) -> dict:
 
 
 def train_step_profile(name: str, best_dir: str, card: str, kind: str,
-                       kernel: str | None, iters: int = STEP_ITERS) -> dict:
-    """``name``'s train step at the config defaults from the weights of
-    ``best_dir``, profiled (``profile_train_step``, ``iters`` steps a
-    measurement) and printed; returns the profile."""
+                       kernel: str | None, iters: int = STEP_ITERS, label: str = "",
+                       cfg=None, **trainer_config) -> dict:
+    """``name``'s train step at ``cfg`` (the config defaults unless given;
+    ``label`` names another) from the weights of ``best_dir``, with the
+    TrainerConfig fields ``trainer_config``, profiled (``profile_train_step``,
+    ``iters`` steps a measurement) and printed; returns the profile."""
     from recalgorithm_tpu_torch import convert
     from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
     from recalgorithm_tpu_torch.features.schema import wechat_schema
@@ -947,11 +1014,11 @@ def train_step_profile(name: str, best_dir: str, card: str, kind: str,
 
     gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=7, vocab_scale=1.0))
     schema = wechat_schema(gen.vocab_sizes())
-    tr = make_trainer(name, schema, convert.load_export(best_dir), get_model(name)[0](),
-                      "cuda", best_dir)
+    tr = make_trainer(name, schema, convert.load_export(best_dir), cfg or get_model(name)[0](),
+                      "cuda", best_dir, **trainer_config)
     prof = profile_train_step(tr, [gen.batch(BST_BATCH, 10 + i) for i in range(4)], kernel,
                               iters)
-    print(f"{name} train step on {kind} ({card}), B={BST_BATCH}, config defaults: "
+    print(f"{name} train step{label} on {kind} ({card}), B={BST_BATCH}, config defaults: "
           f"{prof['step_ms']} ms a step (CUDA events over {iters} steps back to "
           f"back; {BST_BATCH / prof['step_ms'] * 1e3:.0f} ex/s), host wall of a "
           f"synchronized step {prof['wall_ms']} ms (median), device busy "
@@ -969,8 +1036,8 @@ def step_phase(name: str, best_dir: str, capture_module, zero: set[str], card: s
     bst_mha``, the entry the model calls) of that step's forward on cuda over
     all of its batch's rows, against their twins, timed beside their bounds
     and SDPA; the train step profiled (config defaults).  Returns
-    bst_kernels_vs_twins's report at the captured inputs and the held
-    step's reference (``step_vs_cpu``)."""
+    bst_kernels_vs_twins's report at the captured inputs, the held step's
+    reference (``step_vs_cpu``) and the train step's profile."""
     ref = step_vs_cpu(name, best_dir, zero)
 
     schema, weights, cfg, hb = step_setup(name, best_dir)
@@ -999,8 +1066,8 @@ def step_phase(name: str, best_dir: str, capture_module, zero: set[str], card: s
     lens = lengths.cpu().numpy()
     print(f"BST kernels at the {name} train step's first attention inputs "
           f"({tuple(q.shape)}, mean len {lens.mean():.2f}): {json.dumps(r, default=str)}")
-    train_step_profile(name, best_dir, card, kind, "bst_attention")
-    return r, ref
+    prof = train_step_profile(name, best_dir, card, kind, "bst_attention")
+    return r, ref, prof
 
 
 def bst_entries(reports: dict[str, dict], counts: dict[str, dict]) -> list[dict]:
@@ -2155,6 +2222,403 @@ def mesh_phase(work: str, bst_ref: dict, step_dir: str, bst_zero: set[str], scor
             for r in ranks}
 
 
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of two f32 tensors (-0.0 and 0.0 differ, NaNs of one
+    pattern agree)."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+@contextlib.contextmanager
+def low_precision_calls():
+    """While open, counts the bf16 products (a Dense with a compute dtype, an
+    expert contraction with one) that run on cuda tensors, the proof that
+    --precision bf16 did not quietly run f32, and keeps the first of each
+    kind: the Dense, its input and what it returned; the experts' inputs
+    and output."""
+    from recalgorithm_tpu_torch.ops import experts, mlp
+
+    calls = {"dense": 0, "experts": 0}
+    dense_forward, run_experts = mlp.Dense.forward, experts.run_experts
+
+    def dense(self, x):
+        y = dense_forward(self, x)
+        if self.compute_dtype is torch.bfloat16 and x.is_cuda:
+            calls["dense"] += 1
+            calls.setdefault("first dense", (self, x.detach(), y.detach()))
+        return y
+
+    def expert(x, kernel, bias, compute_dtype=None):
+        y = run_experts(x, kernel, bias, compute_dtype)
+        if compute_dtype is torch.bfloat16 and x.is_cuda:
+            calls["experts"] += 1
+            calls.setdefault("first experts", (x.detach(), kernel.detach(), bias.detach(),
+                                               y.detach()))
+        return y
+
+    mlp.Dense.forward, experts.run_experts = dense, expert
+    try:
+        yield calls
+    finally:
+        mlp.Dense.forward, experts.run_experts = dense_forward, run_experts
+
+
+@contextlib.contextmanager
+def compact_lookups():
+    """While open, counts the lookups that took the PAD-compacted gather."""
+    from recalgorithm_tpu_torch.ops import compact_scatter as cs
+
+    calls = [0]
+    plain = cs.take_compact_bwd
+
+    def counted(table, ids):
+        calls[0] += 1
+        return plain(table, ids)
+
+    cs.take_compact_bwd = counted
+    try:
+        yield calls
+    finally:
+        cs.take_compact_bwd = plain
+
+
+def bf16_products_vs_cpu(name: str, calls: dict) -> list[str]:
+    """What the first bf16 products of a model's cuda forward returned
+    (``low_precision_calls``) against the same modules on the CPU on the
+    same inputs.  A Dense: within one bf16 ulp of each rounding (the product
+    on both devices, and the bias add where the bias is not 0) plus the f32
+    sums' error bound, K x 2^-23 x sum_k |x_k w_k| for K terms (a sum that
+    cancels can differ by more than an ulp of its small result before
+    rounding); an expert contraction (bf16 operands summed in f32) within
+    BF16_EXPERTS.  Returns the failures."""
+    import copy
+
+    import torch.nn.functional as F
+
+    bad = []
+    if "first dense" in calls:
+        module, x, got = calls["first dense"]
+        got = got.cpu()
+        cpu = copy.deepcopy(module).cpu()
+        with torch.no_grad():
+            want = cpu(x.cpu())
+        xb, wb = x.cpu().to(torch.bfloat16).float(), cpu.weight.detach().to(torch.bfloat16).float()
+        sum_err = x.shape[-1] * 2.0 ** -23 * F.linear(xb.abs(), wb.abs())
+        bias = (cpu.bias.detach().to(torch.bfloat16).float().abs() if cpu.bias is not None
+                else torch.zeros(got.shape[-1]))
+        rounds = 1.0 + (bias != 0).float()  # the product's rounding, the bias add's
+        diff = (got - want).abs()
+        allowed = BF16_ULP * (rounds * torch.maximum(got.abs(), want.abs()) + bias) + sum_err
+        share = float((got != want).float().mean())
+        worst = float(torch.where(diff == 0, 0.0, diff / allowed).max())
+        print(f"  {name} first bf16 Dense {tuple(got.shape)}, what it returned on cuda vs the "
+              f"same Dense on the CPU: {share:.2e} of the elements differ, the worst at "
+              f"{worst:.3f} of one bf16 ulp a rounding plus the f32 sums' error bound")
+        if not worst <= 1.0:
+            bad.append(f"{name} Dense product")
+    if "first experts" in calls:
+        from recalgorithm_tpu_torch.ops.experts import run_experts
+
+        x, k, b, got = calls["first experts"]
+        got = got.cpu()
+        want = run_experts(x.cpu(), k.cpu(), b.cpu(), torch.bfloat16)
+        err = float((got - want).abs().max())
+        ok = torch.allclose(got, want, rtol=BF16_EXPERTS["rtol"],
+                            atol=BF16_EXPERTS["atol_share"] * float(want.abs().max()))
+        print(f"  {name} first bf16 expert contraction {tuple(got.shape)}, what it returned on "
+              f"cuda vs the CPU: max abs err {err:.3e} (rtol {BF16_EXPERTS['rtol']}, atol "
+              f"{BF16_EXPERTS['atol_share']} x max|h|)")
+        if not ok:
+            bad.append(f"{name} expert contraction")
+    return bad
+
+
+def trainer_grads(tr) -> dict[str, torch.Tensor]:
+    """The gradients a train step left on ``tr``'s parameters (cuda)."""
+    return {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()}
+
+
+def table_grad_ms(prof: dict) -> tuple[float, list]:
+    """A profiled step's embedding-backward time (sort, segment sums,
+    scatter) and the kernels counted."""
+    items = [(n, ms) for n, ms in prof["by_name"].items()
+             if any(k in n for k in TABLE_GRAD_KERNELS)]
+    return sum(ms for _, ms in items), sorted(items, key=lambda kv: -kv[1])
+
+
+def defaults_phase(work: str, gen, step_dir: str, bst_ref: dict, bst_zero: set[str],
+                   bst_prof: dict, scoring: dict, card: str, kind: str) -> dict[str, dict]:
+    """Phase 17: the JAX defaults the port lacked, at full width (real
+    tables, B=4096).  Returns the hand kernels' launches on its main paths,
+    by path."""
+    from recalgorithm_tpu_torch.cli import sweep
+    from recalgorithm_tpu_torch.cli.main import EVAL_BATCHES
+    from recalgorithm_tpu_torch.data import pipeline, stats
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.features.vocab import VocabularyStore
+    from recalgorithm_tpu_torch.models import get_model
+    from recalgorithm_tpu_torch.ops import compact_scatter as cs
+
+    t_phase = time.perf_counter()
+    counts: dict[str, dict] = {}
+    ref, hb = bst_ref, bst_ref["hb"]
+    schema = ref["schema"]
+
+    def bst_trainer(**config):
+        return make_trainer("BST", schema, ref["weights"], ref["cfg"], "cuda", step_dir,
+                            **config)
+
+    # ---- (a) compaction on BST's held step (phase 8's weights and batch)
+    if not cs.batch_fits_compact(hb, schema):
+        raise AssertionError("phase 8's batch does not fit the compact buffer")
+    steps = {}
+    for label, compact in (("compact", True), ("full", False), ("full again", False)):
+        tr = bst_trainer(compact_grad_scatter=compact)
+        zero_counts()
+        with compact_lookups() as calls:
+            loss = float(tr.train_step(hb))
+        torch.cuda.synchronize()
+        counts[f"phase 17 BST step {label}"] = {k: kernel_counts()[k] for k in BST_KERNELS}
+        if calls[0] != (1 if compact else 0):
+            raise AssertionError(f"BST step ({label}): {calls[0]} compacted lookups")
+        steps[label] = (loss, trainer_grads(tr))
+        ratio = hold_step(f"BST ({label} table gradient, cuda)", ref, loss,
+                          {n: g.double().cpu() for n, g in steps[label][1].items()}, bst_zero)
+        print(f"  {label}: {calls[0]} compacted lookup(s), worst tensor at {ratio:.4f} of "
+              f"phase 8's allowance; launches {counts[f'phase 17 BST step {label}']}")
+    (loss_c, grads_c), (loss_f, grads_f) = steps["compact"], steps["full"]
+    table = "embedder.embed.tables.feedid"
+
+    def not_bitwise(a, b):
+        """The tensors of gradients ``a`` and ``b`` that are not bitwise
+        equal, the compacted table on its rows 1.. (row 0 is PAD's), each
+        with its largest difference over its largest |g|."""
+        out = {}
+        for n in b:
+            x, y = (a[n][1:], b[n][1:]) if n == table else (a[n], b[n])
+            if not bits_equal(x, y):
+                out[n] = float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+        return out
+
+    differ = not_bitwise(grads_c, grads_f)
+    noise = not_bitwise(steps["full again"][1], grads_f)  # the same path, run again
+    row0 = bits_equal(grads_c[table][:1], grads_f[table][:1])
+    print(f"compact vs full on cuda: loss {loss_c} vs {loss_f}; tensors not bitwise equal "
+          f"(the feedid table on rows 1..): {differ}; feedid row 0 bitwise: {row0}; the full "
+          f"step against itself run again: {noise}")
+    # the compacted table bitwise; any other difference must be one the full
+    # step shows against itself (the card's own run-to-run rounding)
+    if table in differ or set(differ) - set(noise) or loss_c != loss_f:
+        raise AssertionError(f"compacted step differs from the full one: {differ}")
+    if len({str(counts[f"phase 17 BST step {k}"]) for k in steps}) != 1:
+        raise AssertionError("the BST kernels launched otherwise on the two paths")
+    # a dense batch (every history 50 long): over the cap, the full gradient
+    dense = dict(hb)
+    rng = np.random.default_rng(17)
+    rows, t = hb[SEQ].shape
+    dense[SEQ] = rng.integers(1, schema.vocab_sizes["feedid"] + 1, (rows, t)).astype(np.int32)
+    dense[SEQ + "_len"] = np.full(rows, t, np.int32)
+    if cs.batch_fits_compact(dense, schema):
+        raise AssertionError("a full-length batch fits the compact buffer")
+    dense_grads = {}
+    for label, compact in (("default", True), ("full", False)):
+        tr = bst_trainer(compact_grad_scatter=compact)
+        with compact_lookups() as calls:
+            tr.train_step(dense)
+        if calls[0]:
+            raise AssertionError(f"the dense batch took the compacted gather ({label})")
+        dense_grads[label] = trainer_grads(tr)
+    bad = {n: r for n, r in not_bitwise(dense_grads["default"], dense_grads["full"]).items()
+           if n == table or n not in noise}
+    print(f"dense batch (every history {t} long, {rows * t} live ids > cap "
+          f"{max(256, rows * t // cs.CAP_DIVISOR)}): routed to the full gradient; tensors "
+          f"not bitwise the full path's, beyond the run-to-run ones above: {bad}")
+    if bad:
+        raise AssertionError(f"the dense batch's default step differs from the full one: {bad}")
+    # where the time goes, both ways (not gated)
+    profs = {}
+    for label, compact in (("compact", True), ("full", False)):
+        profs[label] = train_step_profile("BST", step_dir, card, kind, "bst_attention",
+                                          label=f" ({label} table gradient)",
+                                          compact_grad_scatter=compact)
+        ms, items = table_grad_ms(profs[label])
+        print(f"  embedding backward ({label}): {ms} ms a step over {len(items)} kernels: "
+              + "; ".join(f"{n[:60]} {v:.5f}" for n, v in items[:6]))
+    # DIN through cli.main, with and without --no_compact_grad_scatter
+    din_final = {}
+    for label, extra in (("compact", ()), ("full", ("--no_compact_grad_scatter",))):
+        zero_counts()
+        with compact_lookups() as calls:
+            din_final[label] = train_cli("DIN", os.path.join(work, f"din_{label}"),
+                                         DEFAULTS_STEPS, extra)
+        c = kernel_counts()
+        counts[f"phase 17 DIN cli {label}"] = c
+        want = DEFAULTS_STEPS + 2 * EVAL_BATCHES
+        if c["din_attention"] != want or any(c[k] for k in BST_KERNELS):
+            raise AssertionError(f"DIN cli ({label}): launches {c}, want din_attention {want}")
+        if calls[0] != (DEFAULTS_STEPS if label == "compact" else 0):
+            raise AssertionError(f"DIN cli ({label}): {calls[0]} compacted lookups")
+    print(f"DIN cli.main final evals equal with and without --no_compact_grad_scatter: "
+          f"{din_final['compact'] == din_final['full']}")
+
+    # ---- (b) precision="bf16"
+    batch = gen.batch(BF16_EVAL_BATCH, 17)
+    beyond = []
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    for name in BF16_MODELS:
+        cfg_cls, cls = get_model(name)
+        m32 = cls(cfg_cls(), schema, torch.Generator().manual_seed(17))
+        m16 = cls(cfg_cls(precision="bf16"), schema)
+        m16.load_state_dict(m32.state_dict())
+        c16 = cls(cfg_cls(precision="bf16"), schema)
+        c16.load_state_dict(m32.state_dict())
+        if matmul.allow_bf16_reduced_precision_reduction:
+            raise AssertionError(f"{name}: building a bf16 model left cuBLAS's bf16 partial "
+                                 "sums on")
+        outs = {}
+        for label, model, device in (("f32", m32, "cuda"), ("bf16", m16, "cuda"),
+                                     ("cpu bf16", c16, "cpu")):
+            model.to(device).eval()
+            with torch.no_grad(), low_precision_calls() as calls:
+                logits, _ = model({k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+            outs[label] = {t: v.float().cpu().numpy() for t, v in logits.items()}
+            if label == "bf16":
+                if not (calls["dense"] or calls["experts"]):
+                    raise AssertionError(f"{name}: no bf16 product ran on cuda")
+                beyond += bf16_products_vs_cpu(name, calls)
+        bar = BF16_VS_CPU[name]
+        for t, a in outs["f32"].items():
+            b, c = outs["bf16"][t], outs["cpu bf16"][t]
+            if b.dtype != np.float32 or not np.isfinite(b).all() or np.array_equal(a, b):
+                raise AssertionError(f"{name} {t}: bf16 logits {b.dtype}, finite "
+                                     f"{np.isfinite(b).all()}, equal to f32 {np.array_equal(a, b)}")
+            scale = max(1.0, float(np.abs(c).max()))
+            vs_f32 = float(np.abs(a - b).max()) / max(1.0, float(np.abs(a).max()))
+            vs_cpu = float(np.abs(c - b).max()) / scale
+            control = float(np.abs(c - a).max()) / scale  # the card's f32 vs the CPU's bf16
+            print(f"{name} {t} bf16 eval B={BF16_EVAL_BATCH} on cuda: vs its f32 "
+                  f"{vs_f32:.3e} of max(1, max|logit|) (bar {BF16_VS_F32}), vs the CPU bf16 "
+                  f"forward {vs_cpu:.3e} (bar {bar}; the card's f32 logits vs the CPU bf16 "
+                  f"forward {control:.3e}{'' if name in BF16_NO_GAP else ', must exceed it'})")
+            if not (vs_f32 <= BF16_VS_F32 and vs_cpu <= bar
+                    and (name in BF16_NO_GAP or control > bar)):
+                beyond.append(f"{name} {t}")
+        zero_counts()
+        with low_precision_calls() as calls:
+            final = train_cli(name, os.path.join(work, f"bf16_{name}"), DEFAULTS_STEPS,
+                              ("--precision", "bf16"))
+        c = kernel_counts()
+        counts[f"phase 17 {name} bf16 cli"] = c
+        layers = cfg_cls().num_transformer_block if name == "BST" else 0
+        want = {"din_attention": DEFAULTS_STEPS + 2 * EVAL_BATCHES if name == "DIN" else 0,
+                "bst_attention_forward": layers * 2 * EVAL_BATCHES,
+                "bst_attention_forward_save": layers * DEFAULTS_STEPS,
+                "bst_attention_backward": layers * DEFAULTS_STEPS}
+        if (c != want or not math.isfinite(final.get("loss", math.nan))
+                or not calls["dense"] + calls["experts"]):
+            raise AssertionError(f"{name} --precision bf16: launches {c} (want {want}), final "
+                                 f"{final}, bf16 products {calls}")
+        print(f"{name} --precision bf16 through cli.main: loss {final['loss']}, launches {c}, "
+              f"bf16 products on cuda: {calls['dense']} dense, {calls['experts']} experts")
+    print(f"cuBLAS's bf16 partial sums (allow_bf16_reduced_precision_reduction): {reduced} "
+          f"before the first bf16 model of the run, "
+          f"{matmul.allow_bf16_reduced_precision_reduction} after")
+    if beyond:
+        raise AssertionError(f"bf16 logits beyond their bars, or an f32 control within one: "
+                             f"{beyond}")
+    bf16_prof = train_step_profile("BST", step_dir, card, kind, "bst_attention", label=" (bf16)",
+                                   cfg=get_model("BST")[0](precision="bf16"))
+    print(f"BST step f32 vs bf16: {profs['compact']['step_ms']} vs {bf16_prof['step_ms']} ms "
+          f"(events), busy {profs['compact']['busy_ms']} vs {bf16_prof['busy_ms']} ms")
+
+    # ---- (c) fuse_optimizer: accepted, and a no-op (every update is already
+    # multi-tensor): one BST update with it against one without, bitwise, on
+    # the same gradients (a step's own gradients vary in their last bits
+    # from run to run: the manual_tag table's, above); the kernels a step
+    for opt in ("adam", "adagrad"):
+        cfg = dataclasses.replace(ref["cfg"], optimizer=opt)
+        trs = {fuse: make_trainer("BST", schema, ref["weights"], cfg, "cuda", step_dir,
+                                  fuse_optimizer=fuse) for fuse in (False, True)}
+        trs[False].model.train()
+        loss, _ = trs[False]._loss_and_logits(trs[False]._put_batch(hb))
+        loss.backward()
+        for p, q in zip(trs[False].model.parameters(), trs[True].model.parameters()):
+            q.grad = p.grad.clone()
+        params = {}
+        for fuse, tr in trs.items():
+            tr.optimizer.step()
+            params[fuse] = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+        bad = [n for n in params[False] if not bits_equal(params[False][n], params[True][n])]
+        ops = profile_train_step(
+            make_trainer("BST", schema, ref["weights"], cfg, "cuda", step_dir),
+            [gen.batch(BST_BATCH, 10 + i) for i in range(4)], "bst_attention", 5)
+        print(f"BST {opt} update with fuse_optimizer vs without: {len(params[False]) - len(bad)} "
+              f"of {len(params[False])} parameters bitwise equal; kernels+copies a step "
+              f"{ops['device_ops_per_step']:.0f}, busy {ops['busy_ms']:.5f} ms")
+        if bad:
+            raise AssertionError(f"the {opt} step with fuse_optimizer differs: {bad}")
+
+    # ---- (d) the utilities
+    out = os.path.join(work, "sweep.md")
+    zero_counts()
+    rows = sweep.main(["--model", "DeepFM", "--synthetic", "--device", "cuda",
+                       "--grid", '{"hidden_units": ["64,32", "128,64"]}', "--out", out, "--",
+                       "--train_steps", str(DEFAULTS_STEPS), "--batch_size", str(BST_BATCH),
+                       "--synthetic_vocab_scale", "1.0", "--eval_throttle_secs", "0",
+                       "--log_every", "2", "--save_checkpoints_steps", "0"])
+    table_rows = [ln for ln in open(out) if ln.startswith("|")][2:]
+    if len(rows) != 2 or len(table_rows) != 2 or any(kernel_counts().values()):
+        raise AssertionError(f"sweep: {len(rows)} runs, {len(table_rows)} table rows, "
+                             f"launches {kernel_counts()}")
+    print(f"cli.sweep DeepFM hidden_units 64,32 | 128,64 on cuda: "
+          + "; ".join(f"{r[0]['hidden_units']} auc {r[1]['read_comment_auc']:.5f}" for r in rows))
+    vocabs = VocabularyStore.from_dir(scoring["vocabulary"])
+    vschema = wechat_schema(vocabs.sizes())
+    t0 = time.perf_counter()
+    got = stats.compute_stats(pipeline.load_dataset(scoring["eval"], vschema, vocabs), vschema)
+    print(f"data.stats on phase 13's eval split in {time.perf_counter() - t0:.2f} s: "
+          f"num_examples {got['num_examples']}, label rates {got['label_positive_rate']}, "
+          f"{SEQ} {got[SEQ + '_length']}")
+    if got["num_examples"] != FILE_EVAL_ROWS:
+        raise AssertionError(f"data.stats counted {got['num_examples']} of {FILE_EVAL_ROWS} rows")
+    # the timer against CUDA events around the same step, read in turns
+    # (phase 8's own measurement, minutes earlier, is printed beside)
+    tr = make_trainer("BST", schema, ref["weights"], get_model("BST")[0](), "cuda", step_dir)
+    events_us, t1, t2 = step_timer_rounds(tr, [gen.batch(BST_BATCH, 10 + i) for i in range(4)])
+    print(f"  (phase 8's own CUDA-event step, earlier in the run: {bst_prof['step_ms'] * 1e3} us)")
+    if not (abs(t1 / events_us - 1.0) <= TIMER_TOL and STACKED[0] <= t2 / t1 <= STACKED[1]):
+        raise AssertionError("the step timer disagrees with CUDA events or does not scale")
+    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def step_timer_rounds(tr, batches) -> tuple[float, float, float]:
+    """utils.benchmarking's step timer on ``tr``'s train step against CUDA
+    events around STEP_ITERS steps back to back, read in TIMER_ROUNDS
+    interleaved rounds: the medians (us) of the events' step, the timer's
+    step and the timer's slope of 2 stacked steps.  Prints every round."""
+    from recalgorithm_tpu_torch.utils.benchmarking import loop_step_time_us
+
+    for b in batches[:3]:
+        tr.train_step(b)
+    one = lambda st, b, rng: (st, tr.train_step(b))
+    two = lambda st, b, rng: (st, [tr.train_step(b), tr.train_step(b)][1])
+    rounds = []
+    for _ in range(TIMER_ROUNDS):
+        rounds.append((event_step_ms(tr, batches, STEP_ITERS) * 1e3,
+                       *(loop_step_time_us(f, None, batches[0], k_small=TIMER_K[0],
+                                           k_big=TIMER_K[1], repeats=1, device="cuda")
+                         for f in (one, two))))
+    events_us, t1, t2 = (float(np.median(x)) for x in zip(*rounds))
+    print(f"loop_step_time_us on BST's step, {TIMER_ROUNDS} rounds (events, 1 step, 2 steps; "
+          f"us): {[tuple(round(x, 1) for x in r) for r in rounds]}; medians: the timer {t1} us "
+          f"a step against CUDA events {events_us} us: ratio {t1 / events_us:.4f} (limit 1 +- "
+          f"{TIMER_TOL}); 2 stacked steps {t2} us, {t2 / t1:.4f}x one (limits {STACKED})",
+          flush=True)
+    return events_us, t1, t2
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2486,7 +2950,8 @@ def main() -> int:
     step_dir = repeatable_weights("BST", os.path.join(work, "bst_step"))
     bst_zero = zero_gradient_params(BSTConfig())
     reports = {}
-    reports["BST"], bst_ref = step_phase("BST", step_dir, attention, bst_zero, card, kind)
+    reports["BST"], bst_ref, bst_prof = step_phase("BST", step_dir, attention, bst_zero, card,
+                                                   kind)
 
     phase("9. golden recipe (tests/golden_common.py) for BST and DIN on cuda")
     golden_phase(("BST", "DIN"), work)
@@ -2545,14 +3010,26 @@ def main() -> int:
           "(1, 2) mesh; sharded_top_k")
     mesh_counts = mesh_phase(work, bst_ref, step_dir, bst_zero, scoring, card)
 
+    phase("17. main path 8: the JAX defaults the port lacked: the PAD-compacted table "
+          "gradient on BST's held step (against the full one and the f64 CPU step, a dense "
+          "batch routed to the full one, both profiled) and DIN through cli.main with and "
+          "without --no_compact_grad_scatter; --precision bf16 (BST, DIN, MMOE, PLE, DeepFM) "
+          "against f32 and the CPU, through cli.main, BST's bf16 step profiled; "
+          "fuse_optimizer a no-op; cli.sweep, data.stats and the step timer")
+    default_counts = defaults_phase(work, gen, step_dir, bst_ref, bst_zero, bst_prof, scoring,
+                                    card, kind)
+
     din_by_path = {"serving": serve_launches,
                    "DIN stream": file_counts["DIN stream"]["din_attention"],
-                   **{path: c["din_attention"] for path, c in artifact_counts.items()}}
+                   **{path: c["din_attention"] for path, c in artifact_counts.items()},
+                   **{path: c["din_attention"] for path, c in default_counts.items()
+                      if "DIN" in path}}
     din_entry.update(launches=sum(din_by_path.values()), launches_by_path=din_by_path)
     report = {"kernels": [din_entry, *bst_entries(
         reports, {"BST": bst_counts_run, "AutoInt": autoint_counts,
                   "BST from files": file_counts["BST from files"], **artifact_counts,
-                  **mesh_counts})]}
+                  **mesh_counts, **{path: c for path, c in default_counts.items()
+                                    if "BST" in path}})]}
     print(f"\nchip_smoke.py took {time.perf_counter() - t_start:.1f} s, the kernels' build "
           "included")
     print(card)

@@ -1,0 +1,7 @@
+"""CLI alias: `python -m recalgorithm_tpu_torch.cli.afm` trains AFM
+(``cli.main`` with ``--model AFM`` preset; every flag of ``cli.main``)."""
+
+from recalgorithm_tpu_torch.cli.main import main
+
+if __name__ == "__main__":
+    main(model_name="AFM")

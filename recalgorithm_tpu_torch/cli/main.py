@@ -5,6 +5,11 @@ keep their names, and every field of the selected model's config dataclass
 becomes a flag (comma-separated lists for tuple fields, so
 ``--hidden_units 512,256,128`` works as in the reference's sweep commands).
 ``--device`` (default ``cuda``; raises without a GPU) places the run.
+``--precision bf16`` (a config field) runs the dense towers' and experts'
+products in bf16; ``--no_compact_grad_scatter`` turns off the PAD-compacted
+table gradient (``ops/compact_scatter.py``), which is on by default as in
+the JAX CLI.  ``python -m recalgorithm_tpu_torch.cli.<model>`` (``cli.din``,
+``cli.bst``, ...) is this entry point with ``--model`` preset.
 
 Run modes:
   * real data: ``--train_data``/``--eval_data`` point at reference-format
@@ -71,6 +76,8 @@ def build_parser(model_name: str | None = None) -> argparse.ArgumentParser:
     parser.add_argument("--list_models", action="store_true",
                         help="print the registered models and exit")
     parser.add_argument("--model_dir", default="./model_dir")
+    parser.add_argument("--output_dir", default="./output_dir",
+                        help="accepted for the JAX CLI's sake, which reads it nowhere")
     parser.add_argument("--train_data", help="train split TFRecord (required "
                                              "without --synthetic)")
     parser.add_argument("--eval_data", help="eval split TFRecord (required "
@@ -109,6 +116,10 @@ def build_parser(model_name: str | None = None) -> argparse.ArgumentParser:
     parser.add_argument("--shard_map_embeddings", action="store_true",
                         help="the explicit embedding exchange (the port's only one "
                              "under a mesh; accepted as the JAX CLI's flag)")
+    parser.add_argument("--no_compact_grad_scatter", action="store_true",
+                        help="turn off the PAD-compacted gradient of long sequence "
+                             "lookups (on by default; a batch that overflows its buffer "
+                             "takes the full gradient either way)")
     parser.add_argument("--predictions_csv", default="predictions.csv")
     parser.add_argument("--eval_recall_at", type=int, default=0,
                         help="for retrieval models (TwoTower): after training, "
@@ -273,6 +284,7 @@ def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
                       log_every=args.log_every, eval_every_steps=args.eval_every_steps,
                       eval_throttle_secs=args.eval_throttle_secs,
                       save_checkpoints_steps=cfg.save_checkpoints_steps, seed=args.seed,
+                      compact_grad_scatter=not args.no_compact_grad_scatter,
                       grad_accum_steps=args.grad_accum_steps),
         device=device, mesh=mesh,
         global_batch_size=cfg.batch_size * mesh.data_size if mesh is not None else None,

@@ -17,7 +17,12 @@ different answers for ids outside ``[1, num_rows)``:
     reads row 0, and the result is multiplied by ``ids > 0``.
 
 ``embed_sequence`` always takes the gather rule, whatever the table's size,
-as the JAX package does.  A gather-path table quantized for serving
+as the JAX package does.  Inside :func:`compact_grad_scatter` (the trainer's
+train step) a long sequence gather of a whole f32 table takes
+``ops/compact_scatter.take_compact_bwd``: the same rows, and a table
+gradient that scatters only the live (non-PAD) entries.
+
+A gather-path table quantized for serving
 (:meth:`EmbeddingCollection.quantize_`) gathers int8 rows and their per-row
 scales with the same clip rule and multiplies them (the JAX package's
 ``qtables`` lookup).  ``embed_pooled`` counts every ``id > 0`` in the
@@ -40,6 +45,7 @@ they are written out as +-2 stddev.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Mapping
 
@@ -48,6 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from recalgorithm_tpu_torch.embed.sharded import sharded_lookup
+from recalgorithm_tpu_torch.ops import compact_scatter as cs
 from recalgorithm_tpu_torch.parallel import mesh as mesh_lib
 
 # Table rows are padded up to a multiple of this (the JAX package row-shards
@@ -56,6 +63,24 @@ ROW_ALIGN = 256
 
 # Tables with at most this many (padded) rows take the dense lookup rule.
 DENSE_LOOKUP_MAX_ROWS = 2048
+
+# When True (compact_grad_scatter), a (B, T) sequence gather of at least
+# cs.MIN_IDS ids with T >= cs.LONG_SEQ_T takes cs.take_compact_bwd.  Its
+# backward drops live entries beyond the cap: the caller routes a batch that
+# overflows it (cs.batch_fits_compact, on the host) to a step with this off.
+_COMPACT_SCATTER = False
+
+
+@contextlib.contextmanager
+def compact_grad_scatter(enabled: bool = True):
+    """Turn the PAD-compacted sequence gradient on (or off) for the lookups
+    made inside this context; a backward keeps the choice of its forward."""
+    global _COMPACT_SCATTER
+    prev, _COMPACT_SCATTER = _COMPACT_SCATTER, enabled
+    try:
+        yield
+    finally:
+        _COMPACT_SCATTER = prev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,7 +155,8 @@ class EmbeddingCollection(nn.Module):
             return F.embedding(idx, weight)
         return sharded_lookup(weight, idx, self.mesh, self.specs[table].num_rows)
 
-    def _clip_gather(self, table: str, ids: torch.Tensor) -> torch.Tensor:
+    def _clip_gather(self, table: str, ids: torch.Tensor,
+                     compact: bool = False) -> torch.Tensor:
         """``jnp.take(tab, ids, mode='clip')``: ids clamped into the table.
 
         ``F.embedding`` rather than ``tab[ids]``: the same rows, but its
@@ -138,7 +164,16 @@ class EmbeddingCollection(nn.Module):
         indexing backward walks each id's duplicates in one thread.  A
         WeChat-shaped batch repeats the PAD id about 170k times at B=4096
         (sequences are mostly padding), which took that backward 51 ms on
-        an H100 (PERF.md)."""
+        an H100 (PERF.md).
+
+        ``compact`` (a sequence lookup): under :func:`compact_grad_scatter`
+        the gather of a whole f32 table (no process mesh, not int8) with at
+        least ``cs.MIN_IDS`` ids and ``T >= cs.LONG_SEQ_T`` is
+        ``cs.take_compact_bwd``, the JAX engine's gate."""
+        if (compact and _COMPACT_SCATTER and self.mesh is None and ids.dim() == 2
+                and table in self.tables and ids.numel() >= cs.MIN_IDS
+                and ids.shape[-1] >= cs.LONG_SEQ_T):
+            return cs.take_compact_bwd(self.tables[table], ids)
         idx = ids.long().clamp(0, self.specs[table].num_rows - 1)
         q = self._buffers.get(f"{table}__q")
         if q is not None:  # int8 rows times their f32 scales, as gathered
@@ -177,7 +212,7 @@ class EmbeddingCollection(nn.Module):
 
     def embed_sequence(self, table: str, ids: torch.Tensor) -> torch.Tensor:
         """(B, T) padded ids -> (B, T, dim) with zero rows at PAD positions."""
-        emb = self._clip_gather(table, ids)
+        emb = self._clip_gather(table, ids, compact=True)
         return emb * (ids > 0)[..., None].to(emb.dtype)
 
     def embed_pooled(self, table: str, ids: torch.Tensor,

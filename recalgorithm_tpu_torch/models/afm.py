@@ -49,7 +49,6 @@ class AFM(nn.Module):
     def __init__(self, config: AFMConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
         self.config = config
         self.schema = schema
         k = config.embedding_dim

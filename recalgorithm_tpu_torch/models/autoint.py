@@ -51,7 +51,7 @@ class AutoInt(nn.Module):
     def __init__(self, config: AutoIntConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         k, n_dense = config.embedding_dim, len(schema.dense)
@@ -67,7 +67,7 @@ class AutoInt(nn.Module):
         if config.use_deep_tower:
             self.deep = MLPTower(n_dense + num_fields * k, config.hidden_units,
                                  config.dropout_rate, config.batch_norm,
-                                 generator=generator)
+                                 generator=generator, compute_dtype=dt)
             self.deep_logit = Dense(self.deep.out_features, 1, generator)
 
     def forward(self, batch) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:

@@ -56,7 +56,7 @@ class BST(nn.Module):
     def __init__(self, config: BSTConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         tables = common.wd_tables(schema)
@@ -72,7 +72,7 @@ class BST(nn.Module):
         width = (len(schema.dense)
                  + sum(tables[v].dim for _, v, _ in DIN_CATEGORY_FIELDS) + item_dim)
         for i, unit in enumerate(config.hidden_units):
-            self._add(f"dense_{i}", Dense(width, unit, generator))
+            self._add(f"dense_{i}", Dense(width, unit, generator, compute_dtype=dt))
             if config.mlp_activation == "relu":
                 self._add(f"relu_{i}", nn.ReLU())
             if config.batch_norm:

@@ -1,7 +1,6 @@
 """Shared model scaffolding: configs, field groupings, the model registry.
 
-Counterpart of ``recalgorithm_tpu/models/common.py`` (all of it but
-``sigmoid_tasks``, which no model calls).  "W&D family" models (Wide&Deep,
+Counterpart of ``recalgorithm_tpu/models/common.py``.  "W&D family" models (Wide&Deep,
 DeepCrossing, DCN, DIN, BST, MMOE, PLE) use fixed per-field dims
 (wide_and_deep.py:108-114, mmoe.py:103-109); the "FM family" (DeepFM, FFM,
 FwFM, AFM, NFM, PNN, xDeepFM, FiBiNET, and AutoInt) one uniform
@@ -71,10 +70,12 @@ class TrainFlags:
     """Common training flags (reference header, wide_and_deep.py:24-39).
 
     ``cli/main.py`` builds the trainer from them.  ``optimizer`` is one of
-    adam, adagrad, rmsprop and sgd (``train/optimizers.build``); only
-    ``precision="f32"`` is ported.  The JAX package's
-    ``scoped_vmem_limit_kib`` is an XLA-on-TPU compiler budget with no
-    counterpart here and is not carried.
+    adam, adagrad, rmsprop and sgd (``train/optimizers.build``).
+    ``precision``: 'f32' or 'bf16', the dtype of the dense towers' and the
+    experts' products (``ops/mlp.py``, ``ops/experts.py``); parameters, BN
+    statistics, interaction ops, the attention kernels' inputs and the
+    losses stay f32.  The JAX package's ``scoped_vmem_limit_kib`` is an
+    XLA-on-TPU compiler budget with no counterpart here and is not carried.
     """
 
     batch_size: int = 1024
@@ -87,15 +88,14 @@ class TrainFlags:
     num_epochs: int = 1
     shuffle_buffer_size: int = 10000
     save_checkpoints_steps: int = 1000
-    # 'f32' only so far; 'bf16' (mixed-precision dense towers) is not ported
     precision: str = "f32"
 
     @property
-    def compute_dtype(self):
+    def compute_dtype(self) -> torch.dtype | None:
         if self.precision == "f32":
             return None
         if self.precision == "bf16":
-            raise NotImplementedError("precision='bf16' is not ported yet")
+            return torch.bfloat16
         raise ValueError(f"unknown precision {self.precision!r}")
 
 
@@ -115,6 +115,11 @@ def wd_tables(schema: Schema) -> dict[str, TableSpec]:
 def stack_fields(field_list: list[torch.Tensor]) -> torch.Tensor:
     """list of (B, K) with equal K -> (B, F, K)."""
     return torch.stack(field_list, dim=1)
+
+
+def sigmoid_tasks(logits: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """{task: logits} -> {task: probabilities}."""
+    return {k: torch.sigmoid(v) for k, v in logits.items()}
 
 
 class FieldEmbedder(nn.Module):

@@ -56,13 +56,13 @@ class DCN(nn.Module):
     def __init__(self, config: DCNConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         self.embedder, d = wd_embedder(schema, generator)
         self.cross = CrossNetwork(d, config.num_cross_layer, generator)
         self.deep = MLPTower(d, config.hidden_units, config.dropout_rate,
-                             config.batch_norm, generator=generator)
+                             config.batch_norm, generator=generator, compute_dtype=dt)
         self.logit = Dense(d + self.deep.out_features, 1, generator)
 
     def forward(self, batch) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:

@@ -42,7 +42,7 @@ class DCNv2(nn.Module):
 
     def __init__(self, config, schema: Schema, generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         if config.structure not in ("parallel", "stacked"):
             raise ValueError(f"structure must be parallel/stacked, got {config.structure!r}")
         self.config = config
@@ -50,7 +50,7 @@ class DCNv2(nn.Module):
         self.embedder, d = wd_embedder(schema, generator)
         self.add_module(self.cross_name, self.cross_network(d, config, generator))
         self.deep = MLPTower(d, config.hidden_units, config.dropout_rate,
-                             config.batch_norm, generator=generator)
+                             config.batch_norm, generator=generator, compute_dtype=dt)
         parallel = config.structure == "parallel"
         self.logit = Dense(d * parallel + self.deep.out_features, 1, generator)
 

@@ -33,12 +33,13 @@ class DeepCrossing(nn.Module):
     def __init__(self, config: DeepCrossingConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         self.embedder, d = wd_embedder(schema, generator)
         for i in range(config.residual_network_num):
-            self.add_module(f"res_{i}", ResidualUnit(d, config.residual_internal_dim, generator))
+            self.add_module(f"res_{i}", ResidualUnit(d, config.residual_internal_dim, generator,
+                                                     compute_dtype=dt))
         self.logit = Dense(d, 1, generator)
 
     def forward(self, batch) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:

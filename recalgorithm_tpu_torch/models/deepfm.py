@@ -42,7 +42,7 @@ class DeepFM(nn.Module):
     def __init__(self, config: DeepFMConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         k = config.embedding_dim
@@ -54,7 +54,8 @@ class DeepFM(nn.Module):
             common.uniform_tables(schema, k, sorted({v for _, v, _ in fields})), fields,
             generator)
         self.deep = MLPTower(len(fields) * k, config.hidden_units, config.dropout_rate,
-                             config.batch_norm, logits_dim=1, generator=generator)
+                             config.batch_norm, logits_dim=1, generator=generator,
+                             compute_dtype=dt)
 
     @property
     def tasks(self) -> tuple[str, ...]:

@@ -59,7 +59,7 @@ class DIEN(nn.Module):
     def __init__(self, config: DIENConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         tables = common.wd_tables(schema)
@@ -71,7 +71,7 @@ class DIEN(nn.Module):
         width = (len(schema.dense) + sum(tables[v].dim for _, v, _ in DIN_CATEGORY_FIELDS)
                  + na + nh)
         self.fcn = SequenceMLP(width, config.hidden_units, config.activation,
-                               config.batch_norm, config.dropout_rate, generator)
+                               config.batch_norm, config.dropout_rate, generator, dt)
         if config.use_auxiliary_loss:
             self.aux_project_matrix = glorot_param(na, nh, generator=generator)
         self.mesh = None  # under a process mesh the negatives roll the global batch

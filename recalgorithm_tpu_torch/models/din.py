@@ -51,16 +51,18 @@ class DINConfig(common.TrainFlags):
 class SequenceMLP(nn.Module):
     """DIN/DIEN fcn: dense(no act) -> dice/prelu -> BN -> dropout per layer,
     then a 1-wide logit.  Submodules carry the flax names (dense_i, dice_i /
-    prelu_i, bn_i, logit)."""
+    prelu_i, bn_i, logit); the dense layers in ``compute_dtype``, the logit
+    f32."""
 
     def __init__(self, in_features: int, hidden_units: tuple[int, ...],
                  activation: str, batch_norm_: bool, dropout_rate: float,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self._order: list[str] = []
         width = in_features
         for i, unit in enumerate(hidden_units):
-            self._add(f"dense_{i}", Dense(width, unit, generator))
+            self._add(f"dense_{i}", Dense(width, unit, generator, compute_dtype=compute_dtype))
             if activation == "dice":
                 self._add(f"dice_{i}", Dice(unit))
             else:
@@ -86,7 +88,7 @@ class DIN(nn.Module):
     def __init__(self, config: DINConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         tables = common.wd_tables(schema)
@@ -97,7 +99,7 @@ class DIN(nn.Module):
                  + sum(tables[v].dim for _, v, _ in DIN_CATEGORY_FIELDS)
                  + 2 * item_dim)  # target + attention
         self.fcn = SequenceMLP(width, config.hidden_units, config.activation,
-                               config.batch_norm, config.dropout_rate, generator)
+                               config.batch_norm, config.dropout_rate, generator, dt)
 
     def forward(self, batch) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
         cfg = self.config

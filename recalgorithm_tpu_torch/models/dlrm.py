@@ -38,17 +38,17 @@ class DLRM(nn.Module):
     def __init__(self, config: DLRMConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         k = config.embedding_dim
         self.bottom = MLPTower(len(schema.dense), config.bottom_hidden_units, 0.0,
-                               config.batch_norm, generator=generator)
+                               config.batch_norm, generator=generator, compute_dtype=dt)
         self.bottom_out = Dense(self.bottom.out_features, k, generator)
         self.embedder = pnn_embedder(schema, k, generator)
         n = len(PNN_FIELDS) + 1
         self.top = MLPTower(k + n * (n - 1) // 2, config.hidden_units, config.dropout_rate,
-                            config.batch_norm, generator=generator)
+                            config.batch_norm, generator=generator, compute_dtype=dt)
         self.logit = Dense(self.top.out_features, 1, generator)
 
     def forward(self, batch) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:

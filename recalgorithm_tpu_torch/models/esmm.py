@@ -41,12 +41,12 @@ class ESMM(nn.Module):
     def __init__(self, config: ESMMConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         self.embedder, width = wd_embedder(schema, generator)
         tower = dict(dropout_rate=config.dropout_rate, batch_norm=config.batch_norm,
-                     logits_dim=1, generator=generator)
+                     logits_dim=1, generator=generator, compute_dtype=dt)
         self.ctr_tower = MLPTower(width, config.hidden_units, **tower)
         self.cvr_tower = MLPTower(width, config.hidden_units, **tower)
 

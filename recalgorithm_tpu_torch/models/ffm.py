@@ -36,7 +36,6 @@ class FFM(nn.Module):
     def __init__(self, config: FFMConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
         self.config = config
         self.schema = schema
         f = len(common.SCALAR_CAT_FIELDS)

@@ -38,7 +38,7 @@ class FiBiNET(nn.Module):
     def __init__(self, config: FiBiNETConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         k, f = config.embedding_dim, len(PNN_FIELDS)
@@ -50,7 +50,7 @@ class FiBiNET(nn.Module):
         self.bilinear_senet = BilinearInteraction(f, k, kind, generator=generator)
         num_pairs = len(self.bilinear_original.pairs[0])
         self._tower, width = add_tower(self, num_pairs * 2 * k, config.hidden_units,
-                                       config.dropout_rate, config.batch_norm, generator)
+                                       config.dropout_rate, config.batch_norm, generator, dt)
         self.logit = Dense(width, 1, generator)
 
     def forward(self, batch) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:

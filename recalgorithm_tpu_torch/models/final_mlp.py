@@ -71,7 +71,7 @@ class FinalMLP(nn.Module):
     def __init__(self, config: FinalMLPConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         k = config.embedding_dim
@@ -84,7 +84,8 @@ class FinalMLP(nn.Module):
             self.add_module(f"fs{s}", FeatureSelection(
                 len(keys) * k if keys else k, config.fs_hidden_units, flat_dim, generator))
             self.add_module(f"stream{s}", MLPTower(
-                flat_dim, units, config.dropout_rate, config.batch_norm, generator=generator))
+                flat_dim, units, config.dropout_rate, config.batch_norm, generator=generator,
+                compute_dtype=dt))
         self.fusion = BilinearFusion(self.stream1.out_features, self.stream2.out_features,
                                      config.fusion_heads, generator)
 

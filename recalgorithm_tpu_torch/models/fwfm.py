@@ -35,7 +35,6 @@ class FwFM(nn.Module):
     def __init__(self, config: FwFMConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
         self.config = config
         self.schema = schema
         self.first_order = common.FirstOrderLogit(schema, SCALAR_FIELDS)

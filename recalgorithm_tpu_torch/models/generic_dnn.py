@@ -39,7 +39,7 @@ class GenericDNN(nn.Module):
     def __init__(self, config: GenericDNNConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         fields = common.schema_fields(schema)
@@ -48,7 +48,7 @@ class GenericDNN(nn.Module):
             common.uniform_tables(schema, config.embedding_dim, vocabs), fields, generator)
         self.deep = MLPTower(len(schema.dense) + len(fields) * config.embedding_dim,
                              config.hidden_units, config.dropout_rate, config.batch_norm,
-                             generator=generator)
+                             generator=generator, compute_dtype=dt)
         for t in self.tasks:
             self.add_module(f"logit_{t}", Dense(self.deep.out_features, 1, generator))
 

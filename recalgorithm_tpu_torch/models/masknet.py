@@ -47,7 +47,7 @@ class MaskNet(nn.Module):
     def __init__(self, config: MaskNetConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         if config.block_mode not in ("parallel", "serial"):
             raise ValueError(f"unknown block_mode {config.block_mode!r}")
         self.config = config
@@ -68,7 +68,7 @@ class MaskNet(nn.Module):
         else:
             self.head = MLPTower(config.num_blocks * out + n_dense, config.hidden_units,
                                  config.dropout_rate, config.batch_norm, logits_dim=1,
-                                 generator=generator)
+                                 generator=generator, compute_dtype=dt)
 
     def forward(self, batch) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
         cfg = self.config

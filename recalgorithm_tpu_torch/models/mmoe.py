@@ -46,17 +46,17 @@ class MMOE(nn.Module):
     def __init__(self, config: MMOEConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         self.embedder, width = wd_embedder(schema, generator)
         self.experts = ExpertGroup(config.num_experts, width, config.expert_hidden_units,
-                                   generator)
+                                   generator, dt)
         for task in config.task_names:
             self.add_module(f"gate_{task}", SoftmaxGate(width, config.num_experts, generator))
             self.add_module(f"tower_{task}", TaskTower(
                 config.expert_hidden_units, config.hidden_units, config.dropout_rate,
-                config.batch_norm, generator))
+                config.batch_norm, generator, dt))
 
     @property
     def sown(self) -> dict[str, torch.Tensor]:

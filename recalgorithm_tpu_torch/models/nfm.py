@@ -43,7 +43,7 @@ class NFM(nn.Module):
     def __init__(self, config: NFMConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         k = config.embedding_dim
@@ -53,7 +53,8 @@ class NFM(nn.Module):
         self.bi_interaction_dropout = Dropout(BI_INTERACTION_DROPOUT)
         self._order, width = [], k
         for i, units in enumerate(config.hidden_units):
-            layers = [(f"dense_{i}", Dense(width, units, generator)), (f"relu_{i}", nn.ReLU())]
+            layers = [(f"dense_{i}", Dense(width, units, generator, compute_dtype=dt)),
+                      (f"relu_{i}", nn.ReLU())]
             if config.batch_norm:
                 layers.append((f"bn_{i}", batch_norm(units)))
             if 0.0 < config.dropout_rate < 1.0:

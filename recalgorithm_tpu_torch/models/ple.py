@@ -52,7 +52,7 @@ class PLE(nn.Module):
     def __init__(self, config: PLEConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         self.embedder, width = wd_embedder(schema, generator)
@@ -60,15 +60,17 @@ class PLE(nn.Module):
         for i in range(config.num_extract_network):
             self.add_module(f"extract_network_{i}", ExtractionNetwork(
                 width, config.task_names, config.num_experts_per_task, shared, hidden,
-                generator))
+                generator, dt))
             width = hidden
         for task, n in zip(config.task_names, config.num_experts_per_task):
-            self.add_module(f"experts_final_{task}", ExpertGroup(n, width, hidden, generator))
-        self.experts_shared_final = ExpertGroup(shared, width, hidden, generator)
+            self.add_module(f"experts_final_{task}",
+                            ExpertGroup(n, width, hidden, generator, dt))
+        self.experts_shared_final = ExpertGroup(shared, width, hidden, generator, dt)
         for task, n in zip(config.task_names, config.num_experts_per_task):
             self.add_module(f"gate_final_{task}", SoftmaxGate(width, n + shared, generator))
             self.add_module(f"tower_{task}", TaskTower(
-                hidden, config.hidden_units, config.dropout_rate, config.batch_norm, generator))
+                hidden, config.hidden_units, config.dropout_rate, config.batch_norm, generator,
+                dt))
 
     @property
     def sown(self) -> dict[str, torch.Tensor]:

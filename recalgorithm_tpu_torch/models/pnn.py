@@ -61,7 +61,7 @@ class PNN(nn.Module):
     def __init__(self, config: PNNConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         k, d = config.embedding_dim, config.output_dimension
@@ -78,7 +78,8 @@ class PNN(nn.Module):
                              f"{config.product_method!r}")
         self.bias = nn.Parameter(torch.zeros(d))
         self.fcn = MLPTower(d, config.hidden_units, config.dropout_rate,
-                            config.batch_norm, logits_dim=1, generator=generator)
+                            config.batch_norm, logits_dim=1, generator=generator,
+                            compute_dtype=dt)
 
     def forward(self, batch) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
         cfg = self.config

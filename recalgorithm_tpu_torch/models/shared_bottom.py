@@ -36,16 +36,16 @@ class SharedBottom(nn.Module):
     def __init__(self, config: SharedBottomConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         self.embedder, width = wd_embedder(schema, generator)
         self.bottom = MLPTower(width, config.bottom_hidden_units, config.dropout_rate,
-                               config.batch_norm, generator=generator)
+                               config.batch_norm, generator=generator, compute_dtype=dt)
         for task in config.task_names:
             self.add_module(f"tower_{task}", TaskTower(
                 self.bottom.out_features, config.hidden_units, config.dropout_rate,
-                config.batch_norm, generator))
+                config.batch_norm, generator, dt))
 
     def forward(self, batch) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
         shared = self.bottom(torch.cat([batch["dense"], *self.embedder(batch)], dim=-1))

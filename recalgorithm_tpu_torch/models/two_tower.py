@@ -87,7 +87,7 @@ class TwoTower(nn.Module):
     def __init__(self, config: TwoTowerConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         k = config.embedding_dim
@@ -96,7 +96,7 @@ class TwoTower(nn.Module):
             {v: TableSpec(v, schema.vocab_sizes[v], k) for v in vocabs}, generator)
         self._user_dense, self._item_dense = _dense_split(schema)
         tower = dict(dropout_rate=config.dropout_rate, batch_norm=config.batch_norm,
-                     logits_dim=config.output_dim, generator=generator)
+                     logits_dim=config.output_dim, generator=generator, compute_dtype=dt)
         self.user_tower = MLPTower(3 * k + len(self._user_dense), config.hidden_units, **tower)
         self.item_tower = MLPTower(5 * k + len(self._item_dense), config.hidden_units, **tower)
         if config.logq_correction:  # a uniform prior

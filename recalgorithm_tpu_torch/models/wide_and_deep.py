@@ -61,7 +61,7 @@ class WideAndDeep(nn.Module):
     def __init__(self, config: WideAndDeepConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         # the cross spec (fields, bucket count) is the schema's; the config's
@@ -73,7 +73,8 @@ class WideAndDeep(nn.Module):
         self.wide_bias = nn.Parameter(torch.zeros(1))
         self.embedder, width = wd_embedder(schema, generator)
         self.deep = MLPTower(width, config.hidden_units, config.dropout_rate,
-                             config.batch_norm, logits_dim=1, generator=generator)
+                             config.batch_norm, logits_dim=1, generator=generator,
+                             compute_dtype=dt)
         self.sown: dict[str, torch.Tensor] = {}
 
     def forward(self, batch) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:

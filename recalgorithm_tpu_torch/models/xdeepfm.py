@@ -35,7 +35,7 @@ class XDeepFM(nn.Module):
     def __init__(self, config: XDeepFMConfig, schema: Schema,
                  generator: torch.Generator | None = None):
         super().__init__()
-        config.compute_dtype  # raises for precisions not ported yet
+        dt = config.compute_dtype  # None (f32) or bf16 towers
         self.config = config
         self.schema = schema
         k, m = config.embedding_dim, len(PNN_FIELDS)
@@ -48,7 +48,7 @@ class XDeepFM(nn.Module):
             prev = h
         self.cin_logit = Dense(sum(config.cin_layer_feature_maps), 1, generator, bias=False)
         for i, unit in enumerate(config.hidden_units):
-            self.add_module(f"dnn_{i}", Dense(width, unit, generator))
+            self.add_module(f"dnn_{i}", Dense(width, unit, generator, compute_dtype=dt))
             width = unit
         self.dnn_logit = Dense(width, 1, generator, bias=False)
 

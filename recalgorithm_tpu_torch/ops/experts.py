@@ -9,6 +9,15 @@ Dense's).  In train mode a gate keeps the batch mean of its weights, which
 the models hand to the trainer's summaries (``model.sown``) as the JAX gates
 sow them into ``summaries``.
 
+Mixed precision (``compute_dtype``): the expert contraction takes bf16
+operands and accumulates in f32 (the JAX einsum's
+``preferred_element_type=f32``), and the bias is added in f32.  torch has no
+bf16 x bf16 -> f32 contraction on the CPU, so the port rounds the input and
+the kernel to bf16 and contracts the rounded values in f32: each product of
+two bf16 values is exact in f32, so this is the JAX contraction up to
+summation order (on the card an f32 GEMM, TF32 off).  The gates and towers'
+logits stay f32.
+
 Under a process mesh (the trainer calls :meth:`ExpertGroup.shard_`) a group
 whose E divides the model axis keeps E / model experts on each rank of a
 data row, and the rank's expert outputs are gathered over the row with a
@@ -37,10 +46,12 @@ class ExpertGroup(nn.Module):
     groups into one einsum while each group keeps its own parameters."""
 
     def __init__(self, num_experts: int, in_dim: int, hidden_units: int,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.kernel = glorot_param(num_experts, in_dim, hidden_units, generator=generator)
         self.bias = nn.Parameter(torch.zeros(num_experts, hidden_units))
+        self.compute_dtype = compute_dtype
         self.mesh = None  # set by shard_ when the experts are split over ranks
 
     def shard_(self, mesh) -> dict[str, str]:
@@ -66,15 +77,21 @@ class ExpertGroup(nn.Module):
         through the experts is summed over the row, since each rank's
         experts see only their own part of it."""
         if self.mesh is None:
-            return run_experts(x, self.kernel, self.bias)
+            return run_experts(x, self.kernel, self.bias, self.compute_dtype)
         mesh = self.mesh
-        h = run_experts(multihost.sum_grads(x, mesh.model_group), self.kernel, self.bias)
+        h = run_experts(multihost.sum_grads(x, mesh.model_group), self.kernel, self.bias,
+                        self.compute_dtype)
         return multihost.gather_rows(h.transpose(0, 1), mesh.model_group, mesh.num_model,
                                      mesh.model_index, replicated=True).transpose(0, 1)
 
 
-def run_experts(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """relu(einsum('bi,eih->beh') + bias): (B, in) -> (B, E, H)."""
+def run_experts(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """relu(einsum('bi,eih->beh') + bias): (B, in) -> (B, E, H); with
+    ``compute_dtype`` the operands rounded to it, contracted in f32."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype).to(torch.float32)
+        kernel = kernel.to(compute_dtype).to(torch.float32)
     return torch.relu(torch.einsum("bi,eih->beh", x, kernel) + bias)
 
 
@@ -85,7 +102,8 @@ def stacked_experts(x: torch.Tensor, groups: Sequence[ExpertGroup]) -> torch.Ten
     if any(g.mesh is not None for g in groups):
         return torch.cat([g(x) for g in groups], dim=1)
     kernels, biases = zip(*(g.weights() for g in groups))
-    return run_experts(x, torch.cat(kernels, dim=0), torch.cat(biases, dim=0))
+    return run_experts(x, torch.cat(kernels, dim=0), torch.cat(biases, dim=0),
+                       groups[0].compute_dtype)
 
 
 class SoftmaxGate(Dense):
@@ -128,10 +146,12 @@ class TaskTower(nn.Module):
 
     def __init__(self, in_features: int, hidden_units: Sequence[int],
                  dropout_rate: float = 0.1, batch_norm: bool = True,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.MLPTower_0 = MLPTower(in_features, hidden_units, dropout_rate, batch_norm,
-                                   logits_dim=1, generator=generator)
+                                   logits_dim=1, generator=generator,
+                                   compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.MLPTower_0(x)
@@ -149,16 +169,17 @@ class ExtractionNetwork(nn.Module):
 
     def __init__(self, in_dim: int, task_names: Sequence[str],
                  num_experts_per_task: Sequence[int], num_experts_in_shared: int,
-                 expert_hidden_units: int, generator: torch.Generator | None = None):
+                 expert_hidden_units: int, generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.task_names = tuple(task_names)
         self.num_experts_per_task = tuple(num_experts_per_task)
         self.num_experts_in_shared = num_experts_in_shared
         for task, n in zip(self.task_names, self.num_experts_per_task):
-            self.add_module(f"experts_{task}",
-                            ExpertGroup(n, in_dim, expert_hidden_units, generator))
+            self.add_module(f"experts_{task}", ExpertGroup(
+                n, in_dim, expert_hidden_units, generator, compute_dtype))
         self.experts_shared = ExpertGroup(num_experts_in_shared, in_dim,
-                                          expert_hidden_units, generator)
+                                          expert_hidden_units, generator, compute_dtype)
         self.all_gate = SoftmaxGate(in_dim, sum(self.num_experts_per_task)
                                     + num_experts_in_shared, generator)
         for task, n in zip(self.task_names, self.num_experts_per_task):

@@ -15,9 +15,17 @@ Responsibilities (the reference's Estimator usage, wide_and_deep.py:331-376):
   * checkpoints (``torch.save``: model, optimizer, step, dropout generator)
     every ``save_checkpoints_steps``, the last 3 kept, resume from the
     latest; a best-exporter keyed on the first task's eval AUC that keeps
-    the BEST_EXPORTS_KEPT best exports (BestExporter(exports_to_keep=5) parity);
-  * SIGTERM: finish the step in flight, checkpoint, return without the final
-    eval;
+    the ``keep_best`` best exports (BestExporter(exports_to_keep=5) parity);
+  * SIGTERM (``handle_sigterm``): finish the step in flight, checkpoint,
+    return without the final eval;
+  * the PAD-compacted table gradient (``compact_grad_scatter``, on by
+    default as in the JAX trainer; ``ops/compact_scatter.py``): before each
+    step, ``batch_fits_compact`` checks the host batch's ``*_len`` columns
+    (no device sync), and the step's long sequence lookups take the
+    compacted backward when it fits and the full one when it does not, so
+    the gradient is exact at every density;
+  * ``fuse_optimizer`` is accepted and changes nothing: every optimizer's
+    update is already one multi-tensor chain (``train/optimizers.py``);
   * gradient accumulation (``grad_accum_steps`` = k, ``optax.MultiSteps``
     semantics): the optimizer is applied every k micro-batches with the
     running mean of their gradients, so its count (Adam's bias correction,
@@ -39,9 +47,15 @@ exports gather the whole state to rank 0, which writes the one-process
 layout (every rank restores from it and takes its shard).  Each data shard
 draws its own dropout stream; the ranks of a data row draw the same.
 
-Not ported yet: the compact gradient scatter (its torch counterpart, the
-gather's backward, is exact at every density), the TPU compiler options and
-``rng_impl``.
+Several processes without a mesh (``--no_mesh``) decide on compaction per
+batch, each rank alone.  The JAX trainer agrees on the choice over all hosts
+(``agreed_all``) because its two choices are two executables whose
+collectives must match; here the step runs eagerly, no collective depends on
+the choice, and there is nothing to agree on.  Under a mesh the lookups are
+``embed/sharded.py``'s exchange, which keeps its own backward.
+
+The JAX trainer's ``rng_impl`` (a TPU PRNG) and ``scoped_vmem_limit_kib``
+(an XLA-on-TPU compiler budget) have no counterpart on the card.
 
 Data contract: iterables of host batches (dict[str, np.ndarray]) with fixed
 shapes; an optional ``"_weights"`` (B,) 0/1 mask marks real rows in padded
@@ -65,6 +79,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from recalgorithm_tpu_torch import convert
+from recalgorithm_tpu_torch.embed import tables
+from recalgorithm_tpu_torch.ops import compact_scatter as cs
 from recalgorithm_tpu_torch.ops.activations import Dropout
 from recalgorithm_tpu_torch.parallel import mesh as mesh_lib
 from recalgorithm_tpu_torch.parallel import multihost
@@ -73,7 +89,6 @@ from recalgorithm_tpu_torch.train import metrics as M
 from recalgorithm_tpu_torch.utils.summary import SummaryWriter
 
 CHECKPOINTS_KEPT = 3
-BEST_EXPORTS_KEPT = 5  # BestExporter(exports_to_keep=5)
 
 
 @dataclasses.dataclass
@@ -108,7 +123,17 @@ class TrainerConfig:
     # (wide_and_deep.py:350-355); 0 disables (the final eval always runs)
     eval_throttle_secs: float = 0.0
     save_checkpoints_steps: int = 1000
+    keep_best: int = 5  # BestExporter(exports_to_keep=5)
     seed: int = 42  # seeds the dropout generator (seed + 1, as the JAX loop)
+    # accepted and unused: every update is already multi-tensor
+    # (train/optimizers.py), what the JAX maybe_fuse makes of optax's
+    fuse_optimizer: bool = False
+    # PAD-compacted gradient of long sequence lookups (ops/compact_scatter.py);
+    # a batch that overflows the compact buffer runs with it off
+    compact_grad_scatter: bool = True
+    # catch SIGTERM: finish the step in flight, checkpoint, skip the final
+    # eval (installs in the main thread only)
+    handle_sigterm: bool = True
     # apply the optimizer every k micro-batches with the mean of their
     # gradients (optax.MultiSteps); train_steps counts micro-batches
     grad_accum_steps: int = 1
@@ -252,10 +277,14 @@ class Trainer:
 
     def train_step(self, host_batch: Mapping[str, np.ndarray]) -> torch.Tensor:
         """One optimizer step on a host batch; returns the loss (on the
-        device; under a mesh the global batch's)."""
+        device; under a mesh the global batch's).  The compaction choice is
+        made on the host batch, before it goes to the device."""
+        compact = (self.config.compact_grad_scatter and self.mesh is None
+                   and cs.batch_fits_compact(host_batch, self.model.schema))
         batch = self._put_batch(host_batch, self.global_batch_size)
         self.model.train()
-        loss, logits = self._loss_and_logits(batch)
+        with tables.compact_grad_scatter(compact):
+            loss, logits = self._loss_and_logits(batch)
         self.optimizer.zero_grad()
         loss.backward()
         if self.mesh is not None:
@@ -416,7 +445,7 @@ class Trainer:
         resumed run is fed the batches after the restored step).  Returns the
         final eval metrics (empty when preempted or without eval batches)."""
         cfg = self.config
-        checkpointer = _Checkpointer(cfg.model_dir)
+        checkpointer = _Checkpointer(cfg.model_dir, cfg.keep_best)
         checkpointer.restore_latest(self)
         summary = SummaryWriter(os.path.join(cfg.model_dir, "summaries"),
                                 enabled=multihost.process_index() == 0)
@@ -424,11 +453,13 @@ class Trainer:
         # preemption notice (SIGTERM): finish the step in flight, save, skip
         # the final eval.  Installs only in the main thread; restored on return.
         preempted = {"flag": False}
-        try:
-            prev_handler = signal.signal(
-                signal.SIGTERM, lambda signum, frame: preempted.update(flag=True))
-        except ValueError:  # not the main thread
-            prev_handler = None
+        prev_handler = None
+        if cfg.handle_sigterm:
+            try:
+                prev_handler = signal.signal(
+                    signal.SIGTERM, lambda signum, frame: preempted.update(flag=True))
+            except ValueError:  # not the main thread
+                pass
 
         try:
             t0 = last_eval_time = time.time()
@@ -524,8 +555,9 @@ class _Checkpointer:
     same point: the whole state is gathered to rank 0, which alone writes,
     and every rank restores from the one file and takes its shard."""
 
-    def __init__(self, model_dir: str):
+    def __init__(self, model_dir: str, keep_best: int = 5):
         self.model_dir = os.path.abspath(model_dir)
+        self.keep_best = keep_best
         self.dir = os.path.join(self.model_dir, "checkpoints")
         self.writer = multihost.process_index() == 0
         os.makedirs(self.dir, exist_ok=True)
@@ -598,10 +630,10 @@ class _Checkpointer:
             acc.copy_(saved)
 
     def maybe_export_best(self, trainer: Trainer, auc: float) -> None:
-        """Keep the BEST_EXPORTS_KEPT highest-AUC exports (BestExporter parity).
+        """Keep the ``keep_best`` highest-AUC exports (BestExporter parity).
         The decision is the same on every rank (the same AUC and list), so
         every rank enters the gather or none does."""
-        keep = BEST_EXPORTS_KEPT
+        keep = self.keep_best
         if len(self.best) >= keep and auc <= min(a for a, _ in self.best):
             return
         full = trainer.full_state_dict()

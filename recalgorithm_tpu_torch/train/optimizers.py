@@ -15,6 +15,15 @@ package's own FTRL-proximal (TF1 ``FtrlOptimizer`` semantics), and
 of the 0-based count of updates already applied, as
 ``optax.scale_by_schedule`` evaluates it; :class:`Optimizer` sets the rate
 before each step.
+
+The four optimizers of this module update every parameter of a group with
+one chain of multi-tensor ``torch._foreach_*`` ops (a launch chain for all
+parameters, not one a parameter), and ``torch.optim.Adam`` and ``SGD`` take
+their own multi-tensor path on CUDA tensors by default.  So the JAX
+package's ``maybe_fuse`` (``optax.flatten``, one flat buffer) has nothing
+left to do here: ``TrainerConfig.fuse_optimizer`` is accepted and changes
+nothing.  Every update is coordinate-wise, so it is bitwise the same
+whatever the grouping.
 """
 
 from __future__ import annotations
@@ -63,6 +72,18 @@ def make_schedule(learning_rate: float, schedule: str = "constant",
                          else body(step - warmup_steps))
 
 
+def _with_grads(group: dict, state, init) -> tuple[list, list, list]:
+    """The parameters of ``group`` that have a gradient, their gradients, and
+    their state dicts (``init(p)`` fills an empty one)."""
+    params = [p for p in group["params"] if p.grad is not None]
+    states = []
+    for p in params:
+        if not state[p]:
+            state[p].update(init(p))
+        states.append(state[p])
+    return params, [p.grad for p in params], states
+
+
 class Adagrad(torch.optim.Optimizer):
     """``optax.adagrad(lr, initial_accumulator_value, eps)``: acc += g^2, then
     p -= lr * g * rsqrt(acc + eps) where acc > 0 (else no step).  The
@@ -77,18 +98,16 @@ class Adagrad(torch.optim.Optimizer):
     @torch.no_grad()
     def step(self) -> None:
         for group in self.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                state = self.state[p]
-                if not state:
-                    state["sum_of_squares"] = torch.full_like(
-                        p, group["initial_accumulator_value"])
-                acc = state["sum_of_squares"]
-                acc.add_(p.grad.square())
-                scale = torch.where(acc > 0, torch.rsqrt(acc + group["eps"]),
-                                    torch.zeros_like(acc))
-                p.add_(scale * p.grad, alpha=-group["lr"])
+            params, grads, states = _with_grads(group, self.state, lambda p: {
+                "sum_of_squares": torch.full_like(p, group["initial_accumulator_value"])})
+            if not params:  # no parameter of the group has a gradient
+                continue
+            accs = [st["sum_of_squares"] for st in states]
+            torch._foreach_add_(accs, torch._foreach_mul(grads, grads))
+            # where(acc > 0, r, 0) as r * sign(acc): acc >= 0 and r is finite
+            scales = torch._foreach_rsqrt(torch._foreach_add(accs, group["eps"]))
+            torch._foreach_mul_(scales, torch._foreach_sign(accs))
+            torch._foreach_add_(params, torch._foreach_mul(scales, grads), alpha=-group["lr"])
 
 
 class RMSProp(torch.optim.Optimizer):
@@ -102,16 +121,18 @@ class RMSProp(torch.optim.Optimizer):
     @torch.no_grad()
     def step(self) -> None:
         for group in self.param_groups:
-            decay = group["decay"]
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                state = self.state[p]
-                if not state:
-                    state["nu"] = torch.zeros_like(p)
-                nu = state["nu"]
-                nu.copy_((1 - decay) * p.grad.square() + decay * nu)
-                p.add_(torch.rsqrt(nu + group["eps"]) * p.grad, alpha=-group["lr"])
+            decay, eps, lr = group["decay"], group["eps"], group["lr"]
+            params, grads, states = _with_grads(group, self.state,
+                                                lambda p: {"nu": torch.zeros_like(p)})
+            if not params:  # no parameter of the group has a gradient
+                continue
+            nus = [st["nu"] for st in states]
+            sq = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(sq, 1 - decay)
+            torch._foreach_mul_(nus, decay)
+            torch._foreach_add_(nus, sq)
+            r = torch._foreach_rsqrt(torch._foreach_add(nus, eps))
+            torch._foreach_add_(params, torch._foreach_mul(r, grads), alpha=-lr)
 
 
 class Ftrl(torch.optim.Optimizer):
@@ -139,20 +160,28 @@ class Ftrl(torch.optim.Optimizer):
     def step(self) -> None:
         for group in self.param_groups:
             alpha, p, l1, l2 = group["lr"], group["power"], group["l1"], group["l2"]
-            for w in group["params"]:
-                if w.grad is None:
-                    continue
-                state = self.state[w]
-                if not state:
-                    state["z"] = torch.zeros_like(w)
-                    state["n"] = torch.full_like(w, group["initial_accumulator_value"])
-                g, z, n = w.grad, state["z"], state["n"]
-                n_new = n + g * g
-                z.copy_(z + g - (n_new ** (-p) - n ** (-p)) / alpha * w)
-                n.copy_(n_new)
-                denom = n_new ** (-p) / alpha + 2.0 * l2
-                w.copy_(torch.where(z.abs() > l1, -(z - torch.sign(z) * l1) / denom,
-                                    torch.zeros_like(z)))
+            params, grads, states = _with_grads(group, self.state, lambda w: {
+                "z": torch.zeros_like(w),
+                "n": torch.full_like(w, group["initial_accumulator_value"])})
+            if not params:  # no parameter of the group has a gradient
+                continue
+            zs, ns = [st["z"] for st in states], [st["n"] for st in states]
+            old = torch._foreach_pow(ns, -p)
+            torch._foreach_add_(ns, torch._foreach_mul(grads, grads))  # n'
+            new = torch._foreach_pow(ns, -p)
+            sigma = torch._foreach_sub(new, old)
+            torch._foreach_div_(sigma, alpha)
+            torch._foreach_mul_(sigma, params)
+            torch._foreach_add_(zs, grads)
+            torch._foreach_sub_(zs, sigma)
+            denom = torch._foreach_div(new, alpha)
+            torch._foreach_add_(denom, 2.0 * l2)
+            shrunk = torch._foreach_mul(torch._foreach_sign(zs), l1)
+            shrunk = torch._foreach_sub(zs, shrunk)
+            torch._foreach_neg_(shrunk)
+            torch._foreach_div_(shrunk, denom)
+            for w, z, s in zip(params, zs, shrunk):  # the select has no multi-tensor op
+                w.copy_(torch.where(z.abs() > l1, s, torch.zeros_like(z)))
 
 
 class LazyAdam(torch.optim.Optimizer):
@@ -181,18 +210,29 @@ class LazyAdam(torch.optim.Optimizer):
             n = torch.tensor(float(group["count"]), dtype=torch.float32)
             c1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** n)
             c2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** n)
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                state = self.state[p]
-                if not state:
-                    state["mu"] = torch.zeros_like(p)
-                    state["nu"] = torch.zeros_like(p)
-                g, mu, nu = p.grad, state["mu"], state["nu"]
-                hit = g != 0
-                mu.copy_(torch.where(hit, b1 * mu + (1 - b1) * g, mu))
-                nu.copy_(torch.where(hit, b2 * nu + (1 - b2) * g * g, nu))
-                s = -group["lr"] * (mu / c1) / (torch.sqrt(nu / c2) + group["eps"])
+            params, grads, states = _with_grads(group, self.state, lambda p: {
+                "mu": torch.zeros_like(p), "nu": torch.zeros_like(p)})
+            if not params:  # no parameter of the group has a gradient
+                continue
+            mus, nus = [st["mu"] for st in states], [st["nu"] for st in states]
+            mu_new = torch._foreach_mul(mus, b1)
+            torch._foreach_add_(mu_new, torch._foreach_mul(grads, 1 - b1))
+            nu_new = torch._foreach_mul(nus, b2)
+            sq = torch._foreach_mul(grads, 1 - b2)
+            torch._foreach_mul_(sq, grads)
+            torch._foreach_add_(nu_new, sq)
+            # the moments and the parameter move only where g != 0 (the
+            # select has no multi-tensor op)
+            hits = [g != 0 for g in grads]
+            for hit, mu, nu, mn, nn in zip(hits, mus, nus, mu_new, nu_new):
+                mu.copy_(torch.where(hit, mn, mu))
+                nu.copy_(torch.where(hit, nn, nu))
+            den = torch._foreach_sqrt(torch._foreach_div(nus, c2))
+            torch._foreach_add_(den, group["eps"])
+            steps = torch._foreach_div(mus, c1)
+            torch._foreach_mul_(steps, -group["lr"])
+            torch._foreach_div_(steps, den)
+            for p, hit, s in zip(params, hits, steps):
                 p.add_(torch.where(hit, s, torch.zeros_like(s)))
 
 

@@ -1,10 +1,12 @@
 """Scalar and histogram summaries as JSONL, and a profiler scope.
 
-Counterpart of ``recalgorithm_tpu/utils/summary.py`` (its TensorBoard
-mirror is not ported): an append-only ``scalars.jsonl`` of ``{"step",
-"time", tag: value}`` and histogram records that any tool can read, and
-:func:`profile`, the ``torch.profiler`` counterpart of its ``jax.profiler``
-scope.
+Counterpart of ``recalgorithm_tpu/utils/summary.py``: an append-only
+``scalars.jsonl`` of ``{"step", "time", tag: value}`` and histogram records
+that any tool can read, mirrored to TensorBoard event files through
+``torch.utils.tensorboard`` wherever that imports (the ``tensorboard``
+package; optional, never required, as the JAX writer's ``flax.metrics``
+mirror), and :func:`profile`, the ``torch.profiler`` counterpart of its
+``jax.profiler`` scope.
 """
 
 from __future__ import annotations
@@ -17,14 +19,20 @@ from typing import Mapping
 
 
 class SummaryWriter:
-    """JSONL scalar and histogram sink."""
+    """JSONL scalar and histogram sink with an optional TensorBoard mirror."""
 
     def __init__(self, log_dir: str, enabled: bool = True):
         """``enabled=False`` (a process other than 0 of several) writes nothing."""
-        self._f = None
+        self._f = self._tb = None
         if enabled:
             os.makedirs(log_dir, exist_ok=True)
             self._f = open(os.path.join(log_dir, "scalars.jsonl"), "a", buffering=1)
+            try:  # optional: mirror to TensorBoard where the package is installed
+                from torch.utils.tensorboard import SummaryWriter as EventWriter
+
+                self._tb = EventWriter(log_dir)
+            except Exception:
+                self._tb = None
 
     def scalars(self, step: int, values: Mapping[str, float]) -> None:
         if self._f is None:
@@ -32,6 +40,9 @@ class SummaryWriter:
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in values.items()})
         self._f.write(json.dumps(rec) + "\n")
+        if self._tb is not None:
+            for k, v in values.items():
+                self._tb.add_scalar(k, float(v), step)
 
     def histogram(self, step: int, tag: str, values, bins: int = 30) -> None:
         """tf.summary.histogram parity: binned counts and moments, one JSONL
@@ -50,10 +61,17 @@ class SummaryWriter:
             "edges": [float(e) for e in edges],
         }
         self._f.write(json.dumps(rec) + "\n")
+        if self._tb is not None:
+            try:
+                self._tb.add_histogram(tag, v, step)
+            except Exception:
+                pass
 
     def close(self) -> None:
         if self._f is not None:
             self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 @contextlib.contextmanager

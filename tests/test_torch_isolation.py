@@ -65,3 +65,43 @@ def test_several_process_modules_import_no_jax():
             imports = [ln.split() for ln in f if ln.lstrip().startswith(("import ", "from "))]
         roots = {words[1].split(".")[0] for words in imports}
         assert not roots & {"jax", "jaxlib", "flax", "recalgorithm_tpu"}, (path, roots)
+
+
+_NEW = r"""
+import sys
+import recalgorithm_tpu_torch.ops.compact_scatter
+import recalgorithm_tpu_torch.data.stats
+import recalgorithm_tpu_torch.utils.benchmarking
+import recalgorithm_tpu_torch.utils.summary
+import recalgorithm_tpu_torch.cli.sweep
+import recalgorithm_tpu_torch.cli.din
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                                           "recalgorithm_tpu", "matplotlib",
+                                                           "tensorboard", "tensorflow"))
+print(bad)
+"""
+
+
+def test_utility_modules_import_no_jax():
+    """ops/compact_scatter.py, data/stats.py, utils/, cli/sweep.py and the
+    model aliases: no jax, flax or JAX-package import when loaded (and no
+    matplotlib or tensorboard until a plot or a writer is made), and none
+    in their sources."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _NEW], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]", out.stdout
+    pkg = os.path.join(REPO, "recalgorithm_tpu_torch")
+    cli = os.path.join(pkg, "cli")
+    paths = [os.path.join(pkg, *p) for p in (("ops", "compact_scatter.py"), ("data", "stats.py"),
+                                             ("utils", "benchmarking.py"),
+                                             ("utils", "summary.py"))]
+    paths += [os.path.join(cli, f) for f in os.listdir(cli) if f.endswith(".py")]
+    assert len(paths) >= 4 + 27
+    for path in paths:
+        with open(path) as f:
+            imports = [ln.split() for ln in f if ln.lstrip().startswith(("import ", "from "))]
+        roots = {words[1].split(".")[0] for words in imports}
+        assert not roots & {"jax", "jaxlib", "flax", "recalgorithm_tpu"}, (path, roots)

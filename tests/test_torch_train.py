@@ -44,7 +44,6 @@ from recalgorithm_tpu_torch.models.deepfm import DeepFM, DeepFMConfig
 from recalgorithm_tpu_torch.models.din import DIN, DINConfig
 from recalgorithm_tpu_torch.models.pnn import PNN, PNNConfig
 from recalgorithm_tpu_torch.serving.predictor import Predictor
-from recalgorithm_tpu_torch.train import loop as tloop
 from recalgorithm_tpu_torch.train import metrics as TM
 from recalgorithm_tpu_torch.train import optimizers as toptimizers
 from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig
@@ -356,13 +355,12 @@ def test_resume_equals_straight_run(gen, tmp_path):
     assert ckpts == ["ckpt_10.pt", "ckpt_6.pt"]
 
 
-def test_checkpoints_and_best_exports_are_trimmed(gen, tmp_path, monkeypatch):
-    monkeypatch.setattr(tloop, "BEST_EXPORTS_KEPT", 2)
+def test_checkpoints_and_best_exports_are_trimmed(gen, tmp_path):
     model = BST(BSTConfig(hidden_units=(16, 8), dropout_rate=0.0),
                 t_wechat_schema(gen.vocab_sizes()), torch.Generator().manual_seed(0))
     tt = Trainer(model, ("read_comment",), toptimizers.build("adam", LR),
                  TrainerConfig(model_dir=str(tmp_path), train_steps=12, log_every=4,
-                               eval_every_steps=2, save_checkpoints_steps=2),
+                               eval_every_steps=2, save_checkpoints_steps=2, keep_best=2),
                  device="cpu")
     lines = []
     final = tt.train_and_evaluate(gen.batches(B, 12), lambda: gen.batches(B, 2, 5000),

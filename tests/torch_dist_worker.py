@@ -166,7 +166,6 @@ def distributed(rank: int, world: int, in_dir: str, out_dir: str) -> None:
     list and a checkpoint round trip; then sharded_top_k."""
     from recalgorithm_tpu_torch import convert
     from recalgorithm_tpu_torch.parallel import mesh as mesh_lib
-    from recalgorithm_tpu_torch.train import loop
     from recalgorithm_tpu_torch.train.loop import _Checkpointer
 
     data_mesh = mesh_lib.make_mesh(1)
@@ -183,8 +182,7 @@ def distributed(rank: int, world: int, in_dir: str, out_dir: str) -> None:
     # best exports with a full list (keep 1): better, worse (every rank
     # skips the gather), better again (every rank gathers, the old one goes)
     export_root = os.path.join(out_dir, "exports")
-    loop.BEST_EXPORTS_KEPT = 1
-    ck = _Checkpointer(export_root)
+    ck = _Checkpointer(export_root, keep_best=1)
     steps = []
     for auc in (0.9, 0.5, 0.95):
         tr.step += 1
@@ -232,7 +230,29 @@ def _cli(mode: str, rank: int, in_dir: str, out_dir: str) -> None:
         json.dump(cli_main(flags), f)
 
 
-SCENARIOS = {"lookup": lookup, "top_k": top_k, "distributed": distributed,
+def compact_no_mesh(rank: int, world: int, in_dir: str, out_dir: str) -> None:
+    """``--no_mesh`` with the PAD-compacted table gradient: each rank trains
+    DIN alone (no mesh, its own batches ``DIN_r<rank>_batches.npz``), with
+    ``MIN_IDS`` 0 so that these small batches may compact, deciding per
+    batch on its own; saves its losses, its decisions and its parameters."""
+    import torch.distributed as dist
+
+    from recalgorithm_tpu_torch.ops import compact_scatter as cs
+
+    cs.MIN_IDS = 0
+    z = np.load(os.path.join(in_dir, f"DIN_r{rank}_batches.npz"))
+    tr = _trainer("DIN", in_dir, os.path.join(out_dir, f"DIN_r{rank}"), None, None, "sgd",
+                  0.01, hidden_units=(16, 8), dropout_rate=0.0)
+    n = len({k.split("/")[0] for k in z.files})
+    batches = [_batch(z, i, 0, len(z[f"b{i}/labels"])) for i in range(n)]
+    fits = [cs.batch_fits_compact(hb, tr.model.schema) for hb in batches]
+    losses = [float(tr.train_step(hb)) for hb in batches]
+    dist.barrier()  # the world is live; no step entered a collective
+    _save(out_dir, "DIN", rank, losses=losses, fits=fits,
+          **{f"param/{k}": p.detach().numpy() for k, p in tr.model.named_parameters()})
+
+
+SCENARIOS = {"lookup": lookup, "compact_no_mesh": compact_no_mesh, "top_k": top_k, "distributed": distributed,
              # two ranks sharing one card over gloo, CUDA tensors
              "lookup_cuda": lambda rank, world, i, o: lookup(rank, world, i, o, "cuda"),
              "cli_whole": lambda rank, world, i, o: _cli("whole", rank, i, o),
