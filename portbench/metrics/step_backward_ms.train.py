@@ -1,0 +1,20 @@
+"""step_backward_ms.train: host ms a train step spends in ``train.backward``.
+
+The program's span ``train.backward`` under ``train.step``
+(``Trainer.train_step``): ``zero_grad``, ``loss.backward()`` and, under a
+mesh, ``_reduce_grads``. Its spans of the traced window, summed, over the
+window's ``train.step`` spans. Host time: it ends when the host has issued the
+phase's work, or waited for the device where the phase synchronizes.
+"""
+
+from portbench import spans
+
+LAYER = "train/loop.py Trainer.train_step (the host's launch chain)"
+UNIT = "ms/step"
+SOURCE = "program_span"
+MOVES = "train_ex_s"
+KIND = "train"
+
+
+def read(trace):
+    return spans.per_step_ms(trace, "train.backward")

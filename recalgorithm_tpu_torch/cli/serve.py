@@ -11,7 +11,10 @@ batching (serving/server.py), on the GPU unless ``--device cpu``.
                      "his_read_comment_7d_seq": [3, 17, ...]}
                 ->  {"predictions": {"read_comment": 0.031, ...}}
     GET  /healthz   "ok"
-    GET  /metrics   batching counters and batch-latency percentiles
+    GET  /metrics   batching counters; batch_latency_ms_p50/p99 (a flush,
+                    from stacking to its answers) and queue_wait_ms_p50/p99
+                    (each batch's oldest example, from its enqueue to the
+                    flush), over the last 4,096 batches
 
 Features may be pre-translated int ids (the framework's standard serving
 input) or raw string tokens when --vocabulary_dir is given (host-side

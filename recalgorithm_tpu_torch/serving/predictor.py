@@ -25,6 +25,7 @@ from torch import nn
 
 from recalgorithm_tpu_torch.convert import load_export
 from recalgorithm_tpu_torch.serving.export import load_exported
+from recalgorithm_tpu_torch.utils.summary import span
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -70,12 +71,16 @@ class Predictor:
         return os.path.join(model_dir, "export", f"best_{int(step)}")
 
     def predict_batch(self, batch: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
-        """Sigmoid of the eval logits, one (B,) array per task."""
+        """Sigmoid of the eval logits, one (B,) array per task; the spans
+        ``predict.put`` (the columns to the device) and ``predict.forward``
+        (the forward and the copy back, which waits for the device)."""
         with torch.inference_mode():
-            tb = {k: torch.from_numpy(np.array(v)).to(self.device)
-                  for k, v in batch.items()}
-            logits, _ = self.model(tb)
-            return {k: torch.sigmoid(v).cpu().numpy() for k, v in logits.items()}
+            with span("predict.put"):
+                tb = {k: torch.from_numpy(np.array(v)).to(self.device)
+                      for k, v in batch.items()}
+            with span("predict.forward"):
+                logits, _ = self.model(tb)
+                return {k: torch.sigmoid(v).cpu().numpy() for k, v in logits.items()}
 
     def predict(
         self, batches: Iterable[Mapping[str, np.ndarray]]

@@ -13,19 +13,30 @@ co-batching; under load, batches fill to ``max_batch_size`` and the delay
 never engages.  Bucketing pads with zero rows masked out via ``_weights``
 (the framework's standard padded-tail convention), so results are identical
 to unbatched prediction.
+
+Each flush is the span ``serve.flush`` (``utils/summary.py``) over
+``serve.stack``, the predictor's own spans and ``serve.resolve``; while a
+profiler runs it also records each example's ``serve.queue``, from its
+enqueue to the flush's start.  ``stats()`` keeps the last 4,096 flush
+durations and the last 4,096 batches' oldest queue waits.
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
+import time
 from concurrent.futures import Future
 from typing import Mapping
 
 import numpy as np
 
+from recalgorithm_tpu_torch.utils import summary
+
 
 _SENTINEL = object()
+RING = 4096  # batches whose flush time and queue wait stats() summarizes
 
 
 class BatchingPredictor:
@@ -57,7 +68,9 @@ class BatchingPredictor:
         self._n_requests = 0
         self._n_batches = 0
         self._n_errors = 0
-        self._lat_ring: list[float] = []  # last <=4096 batch latencies (s)
+        # last RING flush durations, and each batch's oldest queue wait (s)
+        self._flush_s: collections.deque = collections.deque(maxlen=RING)
+        self._wait_s: collections.deque = collections.deque(maxlen=RING)
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
@@ -67,7 +80,7 @@ class BatchingPredictor:
         """Enqueue ONE example (unbatched feature dict); resolves to a dict
         of per-task probabilities (scalars)."""
         fut: Future = Future()
-        self._q.put((features, fut))
+        self._q.put((features, fut, time.perf_counter()))
         return fut
 
     def predict_one(self, features: Mapping[str, np.ndarray]) -> dict:
@@ -92,9 +105,11 @@ class BatchingPredictor:
         self._worker.join(timeout=10)
 
     def stats(self) -> dict:
-        """Serving counters + batch-latency percentiles (for /metrics)."""
+        """Serving counters, and percentiles of the flush time (the batch
+        from stacking to its answers) and of each batch's oldest queue wait
+        over the last RING batches (for /metrics)."""
         with self._stats_lock:
-            lat = sorted(self._lat_ring)
+            flush, wait = sorted(self._flush_s), sorted(self._wait_s)
             out = {
                 "requests": self._n_requests,
                 "batches": self._n_batches,
@@ -104,9 +119,10 @@ class BatchingPredictor:
                     self._n_requests / self._n_batches, 2
                 ) if self._n_batches else 0.0,
             }
+        for key, lat in (("batch_latency", flush), ("queue_wait", wait)):
             if lat:
-                out["batch_latency_ms_p50"] = round(lat[len(lat) // 2] * 1e3, 2)
-                out["batch_latency_ms_p99"] = round(
+                out[f"{key}_ms_p50"] = round(lat[len(lat) // 2] * 1e3, 2)
+                out[f"{key}_ms_p99"] = round(
                     lat[min(int(len(lat) * 0.99), len(lat) - 1)] * 1e3, 2)
         return out
 
@@ -119,8 +135,6 @@ class BatchingPredictor:
         return self.buckets[-1]
 
     def _run(self):
-        import time
-
         while True:
             item = self._q.get()
             if item is _SENTINEL:
@@ -142,43 +156,54 @@ class BatchingPredictor:
             self._flush(pending)
 
     def _flush(self, pending):
-        import time
+        with summary.span("serve.flush", timed=True) as flush:
+            if flush.id is not None:
+                for _, _, enqueued in pending:
+                    summary.add_span("serve.queue", enqueued, flush.start, flush.id)
+            served = self._serve(pending)
+        if served:
+            with self._stats_lock:
+                self._flush_s.append(flush.end - flush.start)
+                self._wait_s.append(flush.start - pending[0][2])
 
-        t0 = time.perf_counter()
+    def _serve(self, pending) -> bool:
+        """One padded batch through the predictor, its answers to the
+        futures; False where it failed (every future then holds the error)."""
         # the ENTIRE flush runs under the except-to-futures net: a single
         # malformed request (missing key, ragged shape) must fail its batch's
         # futures, not kill the worker thread and hang every later request
+        n = len(pending)
         try:
-            n = len(pending)
-            b = self._bucket(n)
-            feats = [f for f, _ in pending]
-            batch: dict[str, np.ndarray] = {}
-            for key in feats[0]:
-                rows = np.stack([np.asarray(f[key]) for f in feats])
-                if n < b:
-                    pad = np.zeros((b - n,) + rows.shape[1:], rows.dtype)
-                    rows = np.concatenate([rows, pad])
-                batch[key] = rows
-            batch["_weights"] = (np.arange(b) < n).astype(np.float32)
+            with summary.span("serve.stack"):
+                b = self._bucket(n)
+                feats = [f for f, _, _ in pending]
+                batch: dict[str, np.ndarray] = {}
+                for key in feats[0]:
+                    rows = np.stack([np.asarray(f[key]) for f in feats])
+                    if n < b:
+                        pad = np.zeros((b - n,) + rows.shape[1:], rows.dtype)
+                        rows = np.concatenate([rows, pad])
+                    batch[key] = rows
+                batch["_weights"] = (np.arange(b) < n).astype(np.float32)
             probs = self.predictor.predict_batch(batch)
-            # scalar per task (rankers) stays a float; vector per task
-            # (retrieval top-k ids/scores) comes back as an ndarray row
-            results = [
-                {t: (float(p[i]) if np.ndim(p[i]) == 0 else np.asarray(p[i]))
-                 for t, p in probs.items()}
-                for i in range(n)
-            ]
+            with summary.span("serve.resolve"):
+                # scalar per task (rankers) stays a float; vector per task
+                # (retrieval top-k ids/scores) comes back as an ndarray row
+                results = [
+                    {t: (float(p[i]) if np.ndim(p[i]) == 0 else np.asarray(p[i]))
+                     for t, p in probs.items()}
+                    for i in range(n)
+                ]
+                with self._stats_lock:
+                    self._n_requests += n
+                    self._n_batches += 1
+                for res, (_, fut, _) in zip(results, pending):
+                    fut.set_result(res)
         except Exception as exc:  # propagate to every waiting client
             with self._stats_lock:
-                self._n_errors += len(pending)
-            for _, fut in pending:
-                fut.set_exception(exc)
-            return
-        with self._stats_lock:
-            self._n_requests += n
-            self._n_batches += 1
-            self._lat_ring.append(time.perf_counter() - t0)
-            if len(self._lat_ring) > 4096:
-                del self._lat_ring[:2048]
-        for res, (_, fut) in zip(results, pending):
-            fut.set_result(res)
+                self._n_errors += n
+            for _, fut, _ in pending:
+                if not fut.done():
+                    fut.set_exception(exc)
+            return False
+        return True

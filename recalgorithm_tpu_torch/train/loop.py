@@ -86,7 +86,7 @@ from recalgorithm_tpu_torch.parallel import mesh as mesh_lib
 from recalgorithm_tpu_torch.parallel import multihost
 from recalgorithm_tpu_torch.serving.predictor import resolve_device
 from recalgorithm_tpu_torch.train import metrics as M
-from recalgorithm_tpu_torch.utils.summary import SummaryWriter
+from recalgorithm_tpu_torch.utils.summary import SummaryWriter, span
 
 CHECKPOINTS_KEPT = 3
 
@@ -278,17 +278,35 @@ class Trainer:
     def train_step(self, host_batch: Mapping[str, np.ndarray]) -> torch.Tensor:
         """One optimizer step on a host batch; returns the loss (on the
         device; under a mesh the global batch's).  The compaction choice is
-        made on the host batch, before it goes to the device."""
-        compact = (self.config.compact_grad_scatter and self.mesh is None
-                   and cs.batch_fits_compact(host_batch, self.model.schema))
-        batch = self._put_batch(host_batch, self.global_batch_size)
-        self.model.train()
-        with tables.compact_grad_scatter(compact):
-            loss, logits = self._loss_and_logits(batch)
-        self.optimizer.zero_grad()
-        loss.backward()
-        if self.mesh is not None:
-            global_loss = self._reduce_grads(loss)
+        made on the host batch, before it goes to the device.  Its phases
+        are the spans ``train.put``, ``train.forward``, ``train.backward``,
+        ``train.optimizer`` and ``train.metrics`` under ``train.step``
+        (``utils/summary.py``; recorded while a profiler runs)."""
+        with span("train.step"):
+            with span("train.put"):
+                compact = (self.config.compact_grad_scatter and self.mesh is None
+                           and cs.batch_fits_compact(host_batch, self.model.schema))
+                batch = self._put_batch(host_batch, self.global_batch_size)
+            with span("train.forward"):
+                self.model.train()
+                with tables.compact_grad_scatter(compact):
+                    loss, logits = self._loss_and_logits(batch)
+            with span("train.backward"):
+                self.optimizer.zero_grad()
+                loss.backward()
+                if self.mesh is not None:
+                    global_loss = self._reduce_grads(loss)
+            with span("train.optimizer"):
+                self._apply_grads()
+            with span("train.metrics"):
+                loss = loss.detach()
+                self.metrics = self._update_metrics(
+                    self.metrics, batch, {t: v.detach() for t, v in logits.items()}, loss)
+        return loss if self.mesh is None else global_loss
+
+    def _apply_grads(self) -> None:
+        """The optimizer step, or with ``grad_accum_steps`` k > 1 the running
+        mean of the gradients and a step every k-th call."""
         k = self.config.grad_accum_steps
         if k == 1:
             self.optimizer.step()
@@ -306,10 +324,6 @@ class Trainer:
                 self.optimizer.zero_grad()
             self.mini_step = (n + 1) % k
         self.step += 1
-        loss = loss.detach()
-        self.metrics = self._update_metrics(
-            self.metrics, batch, {t: v.detach() for t, v in logits.items()}, loss)
-        return loss if self.mesh is None else global_loss
 
     # -- metric reporting ----------------------------------------------------
 
