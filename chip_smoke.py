@@ -147,9 +147,23 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      grid), data.stats on phase 13's eval split, and utils.benchmarking's
      step timer against CUDA events around the same step, read in turns
      (and 2 stacked steps against one).
+  18. The train step as one CUDA graph (``train/step_graph.py``) at full
+     width, each case 8 steps against its eager twin from the same weights
+     and seed, within the benchmark's ``correct`` limits or bitwise: BST on
+     the compacted and on the full table gradient, DIN, a cosine schedule,
+     an evaluate between steps, a checkpoint restore mid-run that resumes
+     the loss sequence; a fresh trainer's steps 2 and 3 replays; the
+     streaming train metrics (AUC, accuracy, logloss, calibration, loss)
+     against the eager step's, and the rows they counted equal; every
+     model of the zoo 4 steps at a small size: the 24 whose optimizer can
+     be captured replay steps 2-4, DIEN and the two W&D models stay eager.
 
 Each main path's kernel launch counts are set to 0 just before it and read
-just after: a kernel of the path that never launched fails the run.  The
+just after: a kernel of the path that never launched fails the run.  Where
+a path's train steps replay a CUDA graph (cli.main on one card with Adam
+or SGD), which calls no Python wrapper, its launches and its compacted
+gathers are counted by kernel name in a profiler trace of the card
+(``card_kernels``); elsewhere the wrappers count them.  The
 line before the last is one JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}.  Any failure exits non-zero before
 either, as does a machine without CUDA.
@@ -339,6 +353,22 @@ BF16_NO_GAP = ("PLE",)
 BF16_ULP = 2.0 ** -7
 BF16_EXPERTS = dict(rtol=1e-5, atol_share=1e-5)
 TIMER_K = (2, 14)
+# phase 18: train steps a case, and the graph path's limits against its
+# eager twin.  Its own: the losses and the streaming metrics' means (loss,
+# logloss, calibration) within GRAPH_MEAN_GAP relative (the card's largest
+# loss gap over 8-step runs was 1.8e-7, 1.5 f32 ulps; the eager step's own
+# table gradients differ from run to run in their last bits), AUC and
+# accuracy within GRAPH_RANK_GAP (rows that fall on the other side of a
+# bin edge), the rows each metric counted the same; the parameters' change
+# norms within the benchmark's `correct` limits
+# (portbench/workloads/bst-train-*.json)
+GRAPH_STEPS = 8
+GRAPH_ZOO_BATCH, GRAPH_ZOO_VOCAB = 512, 0.01
+GRAPH_MEAN_GAP = 2e-6
+GRAPH_RANK_GAP = 1e-3
+GRAPH_LIMITS = {"loss_gap": GRAPH_MEAN_GAP, "metric_gap": GRAPH_MEAN_GAP,
+                "rank_metric_gap": GRAPH_RANK_GAP, "change_gap": 3e-4,
+                "change_gap_worst": 1e-1}
 TIMER_ROUNDS = 7
 TIMER_TOL = 0.25
 STACKED = (1.5, 2.7)
@@ -607,6 +637,51 @@ def zero_counts() -> None:
 
 
 BST_KERNELS = ("bst_attention_forward", "bst_attention_forward_save", "bst_attention_backward")
+# each wrapper's kernel, as its name reads in a profiler trace of the card
+# (csrc/*.cu templates: DIN's on use_softmax, BST's forward on saving P)
+KERNEL_NAMES = {"din_attention": "din_attention_kernel<",
+                "bst_attention_forward": "bst_attention_fwd_kernel<false",
+                "bst_attention_forward_save": "bst_attention_fwd_kernel<true",
+                "bst_attention_backward": "bst_attention_bwd_kernel<"}
+# the PAD-compacted gather's one kernel of its own: the scatter of each live
+# entry's position to its slot (ops/compact_scatter.py, `src.scatter_`), a
+# kernel no other op of BST's or DIN's step runs (their full-gradient steps
+# run none on an H100)
+COMPACT_SCATTER = ("_cuda_scatter_gather_internal_kernel<true", "TensorAssign>")
+
+
+@contextlib.contextmanager
+def card_kernels():
+    """While open, a torch.profiler (CUPTI) trace of the card; on exit the
+    Counter it yields holds each kernel and copy the card ran, by name:
+    eager launches and CUDA graph replays alike.  A replayed train step
+    calls no Python wrapper, so the wrappers' ``.launches``
+    (``kernel_counts``) and ``compact_lookups`` count eager calls and graph
+    captures only: a path whose train steps replay is counted here
+    (``hand_counts``, ``compacted_gathers``)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from recalgorithm_tpu_torch.utils import summary
+
+    ran: Counter = Counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield ran
+        torch.cuda.synchronize()
+    summary.clear()  # the spans the trainer recorded while the profiler ran
+    ran.update(e.name for e in device_events(prof))
+
+
+def hand_counts(ran) -> dict[str, int]:
+    """Each hand kernel wrapper's kernel in ``card_kernels``'s Counter."""
+    return {w: sum(n for name, n in ran.items() if k in name) for w, k in KERNEL_NAMES.items()}
+
+
+def compacted_gathers(ran) -> int:
+    """The PAD-compacted gathers' backward passes in ``card_kernels``'s
+    Counter (``COMPACT_SCATTER``)."""
+    return sum(n for name, n in ran.items() if all(k in name for k in COMPACT_SCATTER))
 
 
 def train_cli(model: str, model_dir: str, steps: int, extra=(), synthetic: bool = True) -> dict:
@@ -826,8 +901,9 @@ def lookup_abs_sums(model):
 
 
 def make_trainer(name: str, schema, weights: dict, cfg, device: str, model_dir: str,
-                 mesh=None, global_rows: int | None = None, **trainer_config):
-    """A Trainer of ``name`` at ``cfg`` (its optimizer and learning rate) on
+                 mesh=None, global_rows: int | None = None, optimizer=None, **trainer_config):
+    """A Trainer of ``name`` at ``cfg`` (its optimizer and learning rate, or
+    the factory ``optimizer``) on
     ``device`` from ``weights``, an export's state dict (whole; sharded onto
     ``mesh`` when one is given, whose train steps take ``global_rows`` rows
     over all ranks), with the TrainerConfig fields ``trainer_config``; keys
@@ -843,7 +919,7 @@ def make_trainer(name: str, schema, weights: dict, cfg, device: str, model_dir: 
         raise AssertionError(f"{name}: the export lacks {sorted(set(own) - set(weights))}")
     model.load_state_dict({k: v for k, v in weights.items() if k in own})
     return Trainer(model, tuple(cfg.task_names) or (schema.labels[0],),
-                   optimizers.build(cfg.optimizer, cfg.learning_rate),
+                   optimizer or optimizers.build(cfg.optimizer, cfg.learning_rate),
                    TrainerConfig(model_dir=os.path.join(model_dir, "unused"), **trainer_config),
                    device=device, mesh=mesh, global_batch_size=global_rows)
 
@@ -1167,11 +1243,11 @@ def train_and_resume(name: str, model_dir: str, layers: int) -> tuple[dict, str]
 
     every = ["--eval_every_steps", str(BST_EVAL_EVERY),
              "--save_checkpoints_steps", str(BST_EVAL_EVERY)]
-    zero_counts()
-    first = train_cli(name, model_dir, BST_STEPS, every)
-    resumed = train_cli(name, model_dir, BST_RESUME_STEPS, every)
-    counts = kernel_counts()
-    print(f"{name} kernel launches on the training path: {counts}")
+    with card_kernels() as ran:
+        first = train_cli(name, model_dir, BST_STEPS, every)
+        resumed = train_cli(name, model_dir, BST_RESUME_STEPS, every)
+    counts = hand_counts(ran)
+    print(f"{name} kernel launches on the training path (the card's trace): {counts}")
     # inference forwards: every step-triggered eval, the final eval and the
     # predictions of each run, EVAL_BATCHES batches each
     evals = (BST_STEPS // BST_EVAL_EVERY + 2
@@ -1431,18 +1507,18 @@ def files_phase(work: str) -> tuple[dict[str, dict], dict[str, str]]:
     bst_dir = os.path.join(work, "bst_files")
     every = ["--eval_every_steps", str(FILE_BST_EVAL_EVERY),
              "--save_checkpoints_steps", str(FILE_BST_EVAL_EVERY)]
-    zero_counts()
-    data_cli("BST", bst_dir, files, FILE_BST_STEPS, every)
     artifact = os.path.join(bst_dir, "bst.pt2")
-    final = data_cli("BST", bst_dir, files, FILE_BST_RESUME,
-                     [*every, "--export_stablehlo", artifact])
-    bst_counts = kernel_counts()
+    with card_kernels() as ran:
+        data_cli("BST", bst_dir, files, FILE_BST_STEPS, every)
+        final = data_cli("BST", bst_dir, files, FILE_BST_RESUME,
+                         [*every, "--export_stablehlo", artifact])
+    bst_counts = hand_counts(ran)
     passes = (FILE_BST_STEPS // FILE_BST_EVAL_EVERY + 2
               + FILE_BST_RESUME // FILE_BST_EVAL_EVERY - FILE_BST_STEPS // FILE_BST_EVAL_EVERY + 2)
     want = {"din_attention": 0, "bst_attention_forward": passes * n_eval_batches,
             "bst_attention_forward_save": FILE_BST_RESUME,
             "bst_attention_backward": FILE_BST_RESUME}
-    print(f"BST from the files, kernel launches: {bst_counts}")
+    print(f"BST from the files, kernel launches (the card's trace): {bst_counts}")
     if bst_counts != want:
         raise AssertionError(f"launches {bst_counts}, want {want} (one forward with P and one "
                              "backward per train step, one forward per eval or predict batch)")
@@ -1460,12 +1536,13 @@ def files_phase(work: str) -> tuple[dict[str, dict], dict[str, str]]:
     # ---- DIN streams the files through the chunk cache
     din_dir, cache_dir = os.path.join(work, "din_stream"), os.path.join(work, "stream_cache")
     din_steps = STREAM_EPOCHS * STREAM_LIMIT // BST_BATCH
-    zero_counts()
-    din_final = data_cli("DIN", din_dir, files, din_steps, (
-        "--stream", "--stream_chunk_records", str(STREAM_CHUNK), "--limit_examples",
-        str(STREAM_LIMIT), "--stream_cache_dir", cache_dir, "--num_epochs", str(STREAM_EPOCHS)))
-    din_counts = kernel_counts()
-    print(f"DIN streaming the files, kernel launches: {din_counts}")
+    with card_kernels() as ran:
+        din_final = data_cli("DIN", din_dir, files, din_steps, (
+            "--stream", "--stream_chunk_records", str(STREAM_CHUNK), "--limit_examples",
+            str(STREAM_LIMIT), "--stream_cache_dir", cache_dir, "--num_epochs",
+            str(STREAM_EPOCHS)))
+    din_counts = hand_counts(ran)
+    print(f"DIN streaming the files, kernel launches (the card's trace): {din_counts}")
     want = {"din_attention": din_steps + 2 * n_eval_batches, "bst_attention_forward": 0,
             "bst_attention_forward_save": 0, "bst_attention_backward": 0}
     if din_counts != want or not math.isfinite(din_final["loss"]):
@@ -2265,7 +2342,9 @@ def low_precision_calls():
 
 @contextlib.contextmanager
 def compact_lookups():
-    """While open, counts the lookups that took the PAD-compacted gather."""
+    """While open, counts the lookups that took the PAD-compacted gather:
+    its Python calls, an eager step's and a CUDA graph's capture (a replay
+    calls none; ``card_kernels`` sees what a replay ran)."""
     from recalgorithm_tpu_torch.ops import compact_scatter as cs
 
     calls = [0]
@@ -2447,17 +2526,19 @@ def defaults_phase(work: str, gen, step_dir: str, bst_ref: dict, bst_zero: set[s
     # DIN through cli.main, with and without --no_compact_grad_scatter
     din_final = {}
     for label, extra in (("compact", ()), ("full", ("--no_compact_grad_scatter",))):
-        zero_counts()
-        with compact_lookups() as calls:
+        with card_kernels() as ran:
             din_final[label] = train_cli("DIN", os.path.join(work, f"din_{label}"),
                                          DEFAULTS_STEPS, extra)
-        c = kernel_counts()
+        c = hand_counts(ran)
         counts[f"phase 17 DIN cli {label}"] = c
         want = DEFAULTS_STEPS + 2 * EVAL_BATCHES
         if c["din_attention"] != want or any(c[k] for k in BST_KERNELS):
             raise AssertionError(f"DIN cli ({label}): launches {c}, want din_attention {want}")
-        if calls[0] != (DEFAULTS_STEPS if label == "compact" else 0):
-            raise AssertionError(f"DIN cli ({label}): {calls[0]} compacted lookups")
+        gathers = compacted_gathers(ran)
+        print(f"DIN cli ({label}): the card ran {gathers} compacted gathers' backward "
+              f"passes in {DEFAULTS_STEPS} steps (the trace's {COMPACT_SCATTER} kernels)")
+        if gathers != (DEFAULTS_STEPS if label == "compact" else 0):
+            raise AssertionError(f"DIN cli ({label}): {gathers} compacted gathers")
     print(f"DIN cli.main final evals equal with and without --no_compact_grad_scatter: "
           f"{din_final['compact'] == din_final['full']}")
 
@@ -2504,11 +2585,10 @@ def defaults_phase(work: str, gen, step_dir: str, bst_ref: dict, bst_zero: set[s
             if not (vs_f32 <= BF16_VS_F32 and vs_cpu <= bar
                     and (name in BF16_NO_GAP or control > bar)):
                 beyond.append(f"{name} {t}")
-        zero_counts()
-        with low_precision_calls() as calls:
+        with low_precision_calls() as calls, card_kernels() as ran:
             final = train_cli(name, os.path.join(work, f"bf16_{name}"), DEFAULTS_STEPS,
                               ("--precision", "bf16"))
-        c = kernel_counts()
+        c = hand_counts(ran)
         counts[f"phase 17 {name} bf16 cli"] = c
         layers = cfg_cls().num_transformer_block if name == "BST" else 0
         want = {"din_attention": DEFAULTS_STEPS + 2 * EVAL_BATCHES if name == "DIN" else 0,
@@ -2617,6 +2697,203 @@ def step_timer_rounds(tr, batches) -> tuple[float, float, float]:
           f"{TIMER_TOL}); 2 stacked steps {t2} us, {t2 / t1:.4f}x one (limits {STACKED})",
           flush=True)
     return events_us, t1, t2
+
+
+def metric_gaps(graph, eager) -> tuple[dict[str, float], bool, bool]:
+    """Two trainers' streaming train metrics (``Trainer.metrics``): the
+    largest relative gap of the means' snapshots (loss, logloss,
+    calibration) and the largest gap of AUC and accuracy; whether every
+    state counted the same rows (its ``count``; the AUC's confusion counts
+    of each threshold summed); whether the snapshots are equal."""
+    snap = {who: tr._metrics_snapshot(tr.metrics) for who, tr in (("graph", graph),
+                                                                  ("eager", eager))}
+    rank = [k for k in snap["eager"] if k.endswith(("_auc", "_accuracy"))]
+    means = [k for k in snap["eager"] if k not in rank]
+    gaps = {"metric_gap": max(abs(snap["graph"][k] - snap["eager"][k]) / abs(snap["eager"][k])
+                              for k in means),
+            "rank_metric_gap": max(abs(snap["graph"][k] - snap["eager"][k]) for k in rank)}
+
+    def rows(tr):
+        out = [tr.metrics.loss_mean.count]
+        for tm in tr.metrics.task_metrics.values():
+            out += [tm.acc.count, tm.logloss.count, tm.auc.tp + tm.auc.fp + tm.auc.tn + tm.auc.fn]
+        return out
+
+    same_rows = all(torch.equal(a, b) for a, b in zip(rows(graph), rows(eager)))
+    return gaps, same_rows, snap["graph"] == snap["eager"]
+
+
+def graph_gaps(label: str, losses: list, eager_losses: list, graph, eager, init: dict,
+               metrics: bool = True) -> bool:
+    """Phase 18's gate: a trainer's steps replayed as a CUDA graph against
+    the same steps of its twin run eagerly from the same weights and seed:
+    the largest relative gap of a loss; with ``metrics``, the two streaming
+    train metrics (``metric_gaps``); and, as the benchmark's ``correct``
+    compares a program with its reference, the gaps of each parameter's
+    change norm over max(its eager norm, the median's), on the parameters
+    whose eager gradient is at least 1e-3 of the median one's (median and
+    worst).  Prints whether the two are bitwise equal, or the gaps and the
+    largest element gap, beside GRAPH_LIMITS; raises beyond them or where
+    the metrics counted other rows.  Returns bitwise."""
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, eager_losses))
+    grads = {n: float(p.grad.double().norm()) for n, p in eager.model.named_parameters()
+             if p.grad is not None}
+    floor = 1e-3 * float(np.median(list(grads.values())))
+    leaves = [n for n, g in grads.items() if g >= floor]
+    change = {who: {n: float((p.detach() - init[n]).double().norm())
+                    for n, p in tr.model.named_parameters()}
+              for who, tr in (("graph", graph), ("eager", eager))}
+    median = float(np.median([change["eager"][n] for n in leaves]))
+    gaps = {n: abs(change["graph"][n] - change["eager"][n]) / max(change["eager"][n], median)
+            for n in leaves}
+    element = max(float((p.detach() - q.detach()).abs().max())
+                  for p, q in zip(graph.model.parameters(), eager.model.parameters()))
+    got = {"loss_gap": loss_gap}
+    same_rows = same = True
+    if metrics:
+        mgaps, same_rows, same = metric_gaps(graph, eager)
+        got.update(mgaps)
+    got.update(change_gap=float(np.median(list(gaps.values()))),
+               change_gap_worst=max(gaps.values()))
+    bitwise = losses == eager_losses and element == 0.0 and same
+    print(f"{label}: graph vs eager over {len(losses)} steps: "
+          + ("bitwise equal" if bitwise else
+             f"{got} (worst leaf {max(gaps, key=gaps.get)}); largest element gap "
+             f"{element:.3e}; limits {GRAPH_LIMITS}"), flush=True)
+    if not same_rows:
+        raise AssertionError(f"{label}: the graph path's metrics counted other rows than the "
+                             "eager step's")
+    beyond = {k: v for k, v in got.items() if not v <= GRAPH_LIMITS[k]}
+    if beyond:
+        raise AssertionError(f"{label}: the graph path beyond its limits: {beyond}")
+    return bitwise
+
+
+def graph_case(label: str, make, batches: list, between=None) -> bool:
+    """``len(batches)`` train steps of ``make()``'s trainer, replayed from
+    the second, against its eager twin (``make()`` with its graphs off);
+    ``between(trainer, i)`` runs on both after step i.  ``graph_gaps``."""
+    graph, eager = make(), make()
+    eager._step_graphs = None
+    init = {n: p.detach().clone() for n, p in graph.model.named_parameters()}
+    losses = {}
+    for who, tr in (("graph", graph), ("eager", eager)):
+        losses[who] = []
+        for i, b in enumerate(batches):
+            losses[who].append(float(tr.train_step(b)))
+            if between is not None:
+                between(tr, i)
+    if graph.replays != len(batches) - 1 or eager.replays:
+        raise AssertionError(f"{label}: {graph.replays} and {eager.replays} replays")
+    return graph_gaps(label, losses["graph"], losses["eager"], graph, eager, init)
+
+
+def graph_phase(work: str, gen, step_dir: str, din_dir: str) -> None:
+    """Phase 18: the train step as one CUDA graph at full width (B=4096,
+    real tables, dropout on), each case against the eager step: BST on
+    the compacted and on the full table gradient (two keys), DIN, a cosine
+    schedule, an evaluate between steps, a checkpoint restore mid-run; a
+    fresh trainer's third step a replay."""
+    from recalgorithm_tpu_torch import convert
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.models.bst import BSTConfig
+    from recalgorithm_tpu_torch.models.din import DINConfig
+    from recalgorithm_tpu_torch.ops import compact_scatter as cs
+    from recalgorithm_tpu_torch.train import optimizers
+    from recalgorithm_tpu_torch.train.loop import _Checkpointer
+
+    schema = wechat_schema(gen.vocab_sizes())
+    bst_w, din_w = convert.load_export(step_dir), convert.load_export(din_dir)
+
+    def bst(**kw):
+        return make_trainer("BST", schema, bst_w, BSTConfig(), "cuda", work, **kw)
+
+    batches = [gen.batch(BST_BATCH, 300 + i) for i in range(GRAPH_STEPS)]
+    dense = []
+    for i, hb in enumerate(batches):
+        hb = dict(hb)
+        rows, t = hb[SEQ].shape
+        hb[SEQ] = np.random.default_rng(i).integers(
+            1, schema.vocab_sizes["feedid"] + 1, (rows, t)).astype(np.int32)
+        hb[SEQ + "_len"] = np.full(rows, t, np.int32)
+        dense.append(hb)
+    if not (all(cs.batch_fits_compact(b, schema) for b in batches)
+            and not any(cs.batch_fits_compact(b, schema) for b in dense)):
+        raise AssertionError("phase 18's batches do not take the two keys")
+    held = [gen.batch(BST_BATCH, 399)]
+    cosine = optimizers.build("adam", optimizers.make_schedule(0.005, "cosine", 2, 4))
+    bitwise = {
+        "BST, compacted key": graph_case("BST, compacted key", bst, batches),
+        "BST, full key": graph_case("BST, full key", bst, dense),
+        "DIN": graph_case("DIN", lambda: make_trainer("DIN", schema, din_w, DINConfig(), "cuda",
+                                                      work), batches),
+        "BST, cosine schedule": graph_case("BST, cosine schedule",
+                                           lambda: bst(optimizer=cosine), batches),
+        "BST, an evaluate between steps": graph_case(
+            "BST, an evaluate between steps", bst, batches,
+            lambda tr, i: tr.evaluate(held) if i == GRAPH_STEPS // 2 - 1 else None),
+    }
+    # a checkpoint restore mid-run: the same trainer back to step 4 captures
+    # again and resumes the loss sequence of its first run
+    tr, half = bst(), GRAPH_STEPS // 2
+    ck = _Checkpointer(os.path.join(work, "graph_ckpt"))
+    first = [float(tr.train_step(b)) for b in batches[:half]]
+    ck.save(tr)
+    first += [float(tr.train_step(b)) for b in batches[half:]]
+    ck.restore_latest(tr)
+    again = [float(tr.train_step(b)) for b in batches[half:]]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(again, first[half:]))
+    print(f"BST, a checkpoint restore at step {half}: the resumed losses {again} against the "
+          f"first run's {first[half:]}: " + ("bitwise equal" if again == first[half:] else
+                                              f"largest relative gap {gap:.3e}"))
+    if not gap <= GRAPH_LIMITS["loss_gap"] or tr.step != GRAPH_STEPS:
+        raise AssertionError(f"the restored run does not resume its losses ({gap}, {tr.step})")
+    fresh = bst()
+    for i, b in enumerate(batches[:3]):
+        fresh.train_step(b)
+        if fresh.replays != i:
+            raise AssertionError(f"step {i + 1} of a fresh trainer: {fresh.replays} replays")
+    print(f"a fresh trainer's steps 2 and 3 replayed its graph; bitwise against eager: "
+          f"{bitwise}")
+    graph_zoo(work)
+
+
+def graph_zoo(work: str) -> None:
+    """Every registered model (config defaults, tables at GRAPH_ZOO_VOCAB of
+    their size, B=GRAPH_ZOO_BATCH) 4 train steps on cuda with its optimizer
+    as cli.main builds it: a model whose optimizer can be captured replays
+    steps 2-4 (a capture that fails raises), the others step eagerly."""
+    from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
+    from recalgorithm_tpu_torch.features.schema import wechat_schema
+    from recalgorithm_tpu_torch.models import MODEL_REGISTRY, get_model
+    from recalgorithm_tpu_torch.train import optimizers
+    from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    gen = SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=7, vocab_scale=GRAPH_ZOO_VOCAB))
+    schema = wechat_schema(gen.vocab_sizes())
+    batches = [gen.batch(GRAPH_ZOO_BATCH, 500 + i) for i in range(4)]
+    eager = []
+    for name in sorted(MODEL_REGISTRY):
+        cfg_cls, model_cls = get_model(name)
+        cfg = cfg_cls()
+        model = model_cls(cfg, schema, torch.Generator().manual_seed(0))
+        if hasattr(model_cls, "wide_param_predicate"):  # as cli.main
+            opt = optimizers.dual_wide_deep(
+                cfg.wide_part_learning_rate, cfg.deep_part_optimizer, cfg.deep_part_learning_rate,
+                model_cls.wide_param_predicate, [n for n, _ in model.named_parameters()])
+        else:
+            opt = optimizers.build(cfg.optimizer, cfg.learning_rate)
+        tr = Trainer(model, tuple(cfg.task_names) or (schema.labels[0],), opt,
+                     TrainerConfig(model_dir=os.path.join(work, "graph_zoo", name)), device="cuda")
+        losses = [float(tr.train_step(b)) for b in batches]
+        want = 3 if tr._step_graphs is not None else 0
+        if tr.replays != want or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: {tr.replays} replays (want {want}), losses {losses}")
+        if not want:
+            eager.append(f"{name} ({type(getattr(tr.optimizer, 'opt', tr.optimizer)).__name__})")
+    print(f"{len(MODEL_REGISTRY) - len(eager)} of {len(MODEL_REGISTRY)} models replayed steps "
+          f"2-4 of 4 (B={GRAPH_ZOO_BATCH}, tables at {GRAPH_ZOO_VOCAB} of their size); eager, "
+          f"their optimizer not capturable: {eager}", flush=True)
 
 
 def card_line() -> str:
@@ -2929,10 +3206,10 @@ def main() -> int:
     phase("6. full-width DIN trains on cuda through cli.main")
     work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     atexit.register(shutil.rmtree, work, ignore_errors=True)
-    zero_counts()
-    din_final = train_cli("DIN", os.path.join(work, "din"), DIN_TRAIN_STEPS)
-    din_train_launches = din_attention.launches
-    print(f"din_attention launches in DIN training: {din_train_launches}")
+    with card_kernels() as ran:
+        din_final = train_cli("DIN", os.path.join(work, "din"), DIN_TRAIN_STEPS)
+    din_train_launches = hand_counts(ran)["din_attention"]
+    print(f"din_attention launches in DIN training (the card's trace): {din_train_launches}")
     if din_train_launches <= 0 or not math.isfinite(din_final["loss"]):
         raise AssertionError("DIN training never launched din_attention or lost finiteness")
 
@@ -3018,6 +3295,12 @@ def main() -> int:
           "fuse_optimizer a no-op; cli.sweep, data.stats and the step timer")
     default_counts = defaults_phase(work, gen, step_dir, bst_ref, bst_zero, bst_prof, scoring,
                                     card, kind)
+
+    phase(f"18. the train step as one CUDA graph: BST (compacted and full key), DIN, a cosine "
+          f"schedule, an evaluate between steps and a checkpoint restore, {GRAPH_STEPS} steps "
+          "each against the eager step; a fresh trainer's third step a replay")
+    graph_phase(work, SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=7, vocab_scale=1.0)),
+                step_dir, export_dir)
 
     din_by_path = {"serving": serve_launches,
                    "DIN stream": file_counts["DIN stream"]["din_attention"],

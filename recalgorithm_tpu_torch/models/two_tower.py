@@ -95,6 +95,12 @@ class TwoTower(nn.Module):
         self.embed = EmbeddingCollection(
             {v: TableSpec(v, schema.vocab_sizes[v], k) for v in vocabs}, generator)
         self._user_dense, self._item_dense = _dense_split(schema)
+        # the same indices on the model's device (not state: not saved), so
+        # a step reads no index from the host (a CUDA graph cannot hold that)
+        self.register_buffer("user_dense_index", torch.tensor(self._user_dense),
+                             persistent=False)
+        self.register_buffer("item_dense_index", torch.tensor(self._item_dense),
+                             persistent=False)
         tower = dict(dropout_rate=config.dropout_rate, batch_norm=config.batch_norm,
                      logits_dim=config.output_dim, generator=generator, compute_dtype=dt)
         self.user_tower = MLPTower(3 * k + len(self._user_dense), config.hidden_units, **tower)
@@ -109,7 +115,7 @@ class TwoTower(nn.Module):
             self.embed.embed_scalar("userid", batch["userid"]),
             self.embed.embed_scalar("device", batch["device"]),
             self.embed.embed_pooled("feedid", batch[SEQ], "mean"),
-            batch["dense"][:, self._user_dense],
+            batch["dense"][:, self.user_dense_index],
         ], dim=-1)
         return _l2_normalise(self.user_tower(x))
 
@@ -121,7 +127,7 @@ class TwoTower(nn.Module):
             self.embed.embed_scalar("bgm_song_id", batch["bgm_song_id"]),
             self.embed.embed_scalar("bgm_singer_id", batch["bgm_singer_id"]),
             self.embed.embed_pooled("manual_tag_id", batch["manual_tag_list"], "mean"),
-            batch["dense"][:, self._item_dense],
+            batch["dense"][:, self.item_dense_index],
         ], dim=-1)
         return _l2_normalise(self.item_tower(x))
 
@@ -151,8 +157,9 @@ class TwoTower(nn.Module):
                 scores = scores - self._log_q(feed_all)[None, :]
             same = feed[:, None] == feed_all[None, :]
             own = torch.arange(len(feed), device=feed.device) + d * len(feed)
-            eye = torch.zeros_like(same)
-            eye[torch.arange(len(feed), device=feed.device), own] = True
+            # each row's own column, compared on the device (an indexed
+            # write of True would copy the value from the host)
+            eye = torch.arange(len(feed_all), device=feed.device)[None, :] == own[:, None]
             scores = torch.where(same & ~eye, torch.full_like(scores, -1e9), scores)
             logp = torch.log_softmax(scores, dim=-1)
             # only clicked (positive) pairs anchor a softmax row

@@ -44,9 +44,16 @@ def pair_indices(num_fields: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
     return tuple(i), tuple(j)
 
 
+def pair_index(num_fields: int, device: torch.device) -> torch.Tensor:
+    """:func:`pair_indices` as a (2, P) index tensor made on ``device``: an
+    index read from the host would be a copy, which a CUDA graph of the
+    train step cannot hold."""
+    return torch.triu_indices(num_fields, num_fields, offset=1, device=device)
+
+
 def pairwise_hadamard(field_emb: torch.Tensor) -> torch.Tensor:
     """(B, F, K) -> (B, P, K): every pair's elementwise product."""
-    i, j = pair_indices(field_emb.shape[1])
+    i, j = pair_index(field_emb.shape[1], field_emb.device)
     return field_emb[:, i, :] * field_emb[:, j, :]
 
 
@@ -54,7 +61,7 @@ def pairwise_dot(field_emb: torch.Tensor) -> torch.Tensor:
     """(B, F, K) -> (B, P): every pair's inner product, read off the Gram
     matrix."""
     gram = torch.einsum("bfk,bgk->bfg", field_emb, field_emb)
-    i, j = pair_indices(field_emb.shape[1])
+    i, j = pair_index(field_emb.shape[1], field_emb.device)
     return gram[:, i, j]
 
 
@@ -252,6 +259,7 @@ class BilinearInteraction(nn.Module):
                  drop_last_field: bool = True, generator: torch.Generator | None = None):
         super().__init__()
         f_eff = num_fields - 1 if drop_last_field else num_fields
+        self.num_pair_fields = f_eff
         self.pairs = pair_indices(f_eff)
         self.interaction_type = interaction_type
         k = embed_dim
@@ -266,10 +274,10 @@ class BilinearInteraction(nn.Module):
                              f"got {interaction_type!r}")
 
     def forward(self, field_emb: torch.Tensor) -> torch.Tensor:
-        i, j = self.pairs
+        i, j = pair_index(self.num_pair_fields, field_emb.device)
         if self.interaction_type == "all":
             return (field_emb @ self.w_all)[:, i, :] * field_emb[:, j, :]
-        w = self.w_each[list(i)] if self.interaction_type == "each" else self.w_interaction
+        w = self.w_each[i] if self.interaction_type == "each" else self.w_interaction
         return torch.einsum("bpk,pkl->bpl", field_emb[:, i, :], w) * field_emb[:, j, :]
 
 

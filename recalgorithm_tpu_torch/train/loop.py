@@ -26,6 +26,12 @@ Responsibilities (the reference's Estimator usage, wide_and_deep.py:331-376):
     the gradient is exact at every density;
   * ``fuse_optimizer`` is accepted and changes nothing: every optimizer's
     update is already one multi-tensor chain (``train/optimizers.py``);
+  * on CUDA the whole step is one CUDA graph, replayed
+    (``train/step_graph.py``): where there is no process mesh, no gradient
+    accumulation and the optimizer's updates can be captured (Adam and SGD;
+    ``step_graph.engaged``), a key's (compaction choice, columns' shapes)
+    first step runs eagerly, its second captures and replays, and every
+    later one replays.  Everywhere else every step runs eagerly;
   * gradient accumulation (``grad_accum_steps`` = k, ``optax.MultiSteps``
     semantics): the optimizer is applied every k micro-batches with the
     running mean of their gradients, so its count (Adam's bias correction,
@@ -86,6 +92,7 @@ from recalgorithm_tpu_torch.parallel import mesh as mesh_lib
 from recalgorithm_tpu_torch.parallel import multihost
 from recalgorithm_tpu_torch.serving.predictor import resolve_device
 from recalgorithm_tpu_torch.train import metrics as M
+from recalgorithm_tpu_torch.train import step_graph
 from recalgorithm_tpu_torch.utils.summary import SummaryWriter, span
 
 CHECKPOINTS_KEPT = 3
@@ -180,6 +187,15 @@ class Trainer:
         self.accum = ([torch.zeros_like(p) for p in self.model.parameters()]
                       if config.grad_accum_steps > 1 else [])
         self._inputs = frozenset(self.model.schema.batch_spec(1)) | {"_weights"}
+        # a batch's row count as a device constant, by row count
+        self._rows: dict[int, torch.Tensor] = {}
+        # the step's CUDA graphs by key (step_graph.py); None: every step eager
+        self._step_graphs: dict[step_graph.Key, step_graph.StepGraph] | None = (
+            {} if step_graph.engaged(self.device, mesh, config.grad_accum_steps,
+                                     self.optimizer) else None)
+        self._side = torch.cuda.Stream(self.device) if self._step_graphs is not None else None
+        self._grads_of = None  # the graph whose gradients the parameters hold
+        self.replays = 0  # steps that ran as a graph replay
 
     def _fresh_metrics(self) -> MetricsState:
         return MetricsState(M.ScalarMeanState.init(self.device),
@@ -226,26 +242,30 @@ class Trainer:
             total = total + leaf.sum()
         return total, logits
 
-    def _update_metrics(self, state: MetricsState, batch, logits, loss) -> MetricsState:
+    def _update_metrics(self, state: MetricsState, batch, logits, loss) -> None:
+        """Adds the batch to ``state`` in place."""
         weights = batch.get("_weights")
-        tms = {}
         for task in self.task_names:
             y = self._task_label(batch, task)
             p = torch.sigmoid(logits[task])
             tm = state.task_metrics[task]
             pc = p.clamp(1e-7, 1.0 - 1e-7)
             ce = -(y * torch.log(pc) + (1.0 - y) * torch.log1p(-pc))
-            tms[task] = TaskMetrics(
-                auc=M.auc_update(tm.auc, y, p, weights),
-                acc=M.mean_update(tm.acc, ((p >= 0.5).to(torch.float32) == y)
-                                  .to(torch.float32), weights),
-                logloss=M.mean_update(tm.logloss, ce, weights),
-                pmean=M.mean_update(tm.pmean, p, weights),
-                ymean=M.mean_update(tm.ymean, y.to(torch.float32), weights),
-            )
-        n = weights.sum() if weights is not None else torch.tensor(
-            float(batch["labels"].shape[0]), device=self.device)
-        return MetricsState(M.mean_update(state.loss_mean, loss[None], n[None]), tms)
+            M.auc_update(tm.auc, y, p, weights)
+            M.mean_update(tm.acc, ((p >= 0.5).to(torch.float32) == y).to(torch.float32),
+                          weights)
+            M.mean_update(tm.logloss, ce, weights)
+            M.mean_update(tm.pmean, p, weights)
+            M.mean_update(tm.ymean, y.to(torch.float32), weights)
+        M.mean_update(state.loss_mean, loss[None],
+                      weights.sum()[None] if weights is not None else self._row_count(batch))
+
+    def _row_count(self, batch) -> torch.Tensor:
+        """(1,) f32 of the batch's rows, a device constant made once."""
+        b = int(batch["labels"].shape[0])
+        if b not in self._rows:
+            self._rows[b] = torch.full((1,), float(b), device=self.device)
+        return self._rows[b]
 
     def _reduce_grads(self, loss: torch.Tensor) -> torch.Tensor:
         """Under a mesh: every gradient to the global batch mean's (module
@@ -279,30 +299,108 @@ class Trainer:
         """One optimizer step on a host batch; returns the loss (on the
         device; under a mesh the global batch's).  The compaction choice is
         made on the host batch, before it goes to the device.  Its phases
-        are the spans ``train.put``, ``train.forward``, ``train.backward``,
-        ``train.optimizer`` and ``train.metrics`` under ``train.step``
-        (``utils/summary.py``; recorded while a profiler runs)."""
+        are spans under ``train.step`` (``utils/summary.py``; recorded while
+        a profiler runs): ``train.put``, then for an eager step
+        ``train.forward``, ``train.backward``, ``train.optimizer`` and
+        ``train.metrics``, for a replayed one ``train.replay`` (after a
+        ``train.capture`` where the step captured its graph, or captured it
+        again because a load of optimizer state replaced what it reads)."""
         with span("train.step"):
             with span("train.put"):
                 compact = (self.config.compact_grad_scatter and self.mesh is None
                            and cs.batch_fits_compact(host_batch, self.model.schema))
-                batch = self._put_batch(host_batch, self.global_batch_size)
-            with span("train.forward"):
-                self.model.train()
-                with tables.compact_grad_scatter(compact):
-                    loss, logits = self._loss_and_logits(batch)
-            with span("train.backward"):
-                self.optimizer.zero_grad()
-                loss.backward()
-                if self.mesh is not None:
-                    global_loss = self._reduce_grads(loss)
-            with span("train.optimizer"):
-                self._apply_grads()
-            with span("train.metrics"):
-                loss = loss.detach()
-                self.metrics = self._update_metrics(
-                    self.metrics, batch, {t: v.detach() for t, v in logits.items()}, loss)
+                graph = self._graph_of(host_batch, compact)
+                batch = (graph.put(host_batch) if graph is not None
+                         else self._put_batch(host_batch, self.global_batch_size))
+            if graph is None:
+                return self._eager_step(batch, compact)
+            if not graph.warm:
+                return self._warm_up(graph, batch, compact)
+            if graph.graph is None or graph.version != self.optimizer.version:
+                with span("train.capture"):
+                    self._capture(graph, batch, compact)
+            with span("train.replay"):
+                return self._replay(graph)
+
+    def _graph_of(self, host_batch, compact: bool) -> step_graph.StepGraph | None:
+        """The step graph of the host batch's key, made at its first sight
+        with inputs for the model's columns (the put leaves the others,
+        such as ``_index``, on the host, as ``_put_batch`` does); None where
+        steps run eagerly."""
+        if self._step_graphs is None:
+            return None
+        cols = {k: v for k, v in host_batch.items() if k in self._inputs}
+        k = step_graph.key(cols, compact)
+        graph = self._step_graphs.get(k)
+        if graph is None:
+            graph = self._step_graphs[k] = step_graph.StepGraph.of(cols, self.device)
+        return graph
+
+    def _eager_step(self, batch, compact: bool) -> torch.Tensor:
+        """The step's forward, backward, update and metrics, run now."""
+        self._grads_of = None
+        with span("train.forward"):
+            self.model.train()
+            with tables.compact_grad_scatter(compact):
+                loss, logits = self._loss_and_logits(batch)
+        with span("train.backward"):
+            self.optimizer.zero_grad()
+            loss.backward()
+            if self.mesh is not None:
+                global_loss = self._reduce_grads(loss)
+        with span("train.optimizer"):
+            self._apply_grads()
+        with span("train.metrics"):
+            loss = loss.detach()
+            self._update_metrics(self.metrics, batch,
+                                 {t: v.detach() for t, v in logits.items()}, loss)
         return loss if self.mesh is None else global_loss
+
+    def _warm_up(self, graph: step_graph.StepGraph, batch, compact: bool) -> torch.Tensor:
+        """A key's first step: eager, on the side stream the capture uses."""
+        stream = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(stream)
+        with torch.cuda.stream(self._side):
+            loss = self._eager_step(batch, compact)
+        stream.wait_stream(self._side)
+        graph.warm = True
+        return loss
+
+    def _capture(self, graph: step_graph.StepGraph, batch, compact: bool) -> None:
+        """Captures the step into ``graph`` (no kernel runs; the replay
+        that follows runs them).  The gradients are set to None first, so
+        the backward makes them in the graph's pool.  A failure raises."""
+        graph.graph = None  # a graph captured again frees its old pool first
+        self.optimizer.zero_grad()
+        self.model.train()
+        cuda_graph = torch.cuda.CUDAGraph()
+        cuda_graph.register_generator_state(self.generator)
+        with torch.cuda.graph(cuda_graph, stream=self._side):
+            with tables.compact_grad_scatter(compact):
+                loss, logits = self._loss_and_logits(batch)
+            loss.backward()
+            self.optimizer.apply()
+            loss = loss.detach()
+            self._update_metrics(self.metrics, batch,
+                                 {t: v.detach() for t, v in logits.items()}, loss)
+        graph.graph, graph.loss, graph.version = cuda_graph, loss, self.optimizer.version
+        graph.grads = [p.grad for p in self.model.parameters()]
+        self._grads_of = None
+
+    def _replay(self, graph: step_graph.StepGraph) -> torch.Tensor:
+        """The step as ``graph``'s replay: the rate written, the graph
+        launched; the parameters hold its gradients after it."""
+        if not self.model.training:
+            self.model.train()
+        self.optimizer.prepare()
+        loss = graph.replay()
+        if self._grads_of is not graph:
+            for p, g in zip(self.model.parameters(), graph.grads):
+                p.grad = g
+            self._grads_of = graph
+        self.step += 1
+        self.replays += 1
+        return loss
 
     def _apply_grads(self) -> None:
         """The optimizer step, or with ``grad_accum_steps`` k > 1 the running
@@ -405,7 +503,7 @@ class Trainer:
             for hb in eval_batches:
                 batch = self._put_batch(hb)
                 loss, logits = self._loss_and_logits(batch)
-                state = self._update_metrics(state, batch, logits, loss)
+                self._update_metrics(state, batch, logits, loss)
         return self._metrics_snapshot(state)
 
     def predict(self, batches: Iterable[Mapping[str, np.ndarray]], collect: tuple[str, ...] = ()
@@ -632,10 +730,10 @@ class _Checkpointer:
             generators = ck.get("generators")
             if generators is not None and len(generators) == mesh.world:
                 generator = generators[mesh.rank]
-        trainer.model.load_state_dict(model)
-        trainer.optimizer.load_state_dict(opt)
+        trainer.model.load_state_dict(model)  # in place: the graphs keep reading it
+        trainer.optimizer.load_state_dict(opt)  # new state tensors: graphs captured again
         trainer.step = int(ck["step"])
-        trainer.generator.set_state(generator)
+        trainer.generator.set_state(generator)  # a replay reads it anew
         if len(accum) != len(trainer.accum):
             raise ValueError(f"checkpoint {steps[-1]} was written with another "
                              "grad_accum_steps than this run's")

@@ -4,7 +4,10 @@ Counterpart of ``recalgorithm_tpu/train/metrics.py``.  The reference's
 north-star metric is streaming ``tf.metrics.auc`` with its default 200
 thresholds (e.g. wide_and_deep.py:243).  ``AUCState`` reproduces that
 binning as per-threshold counts that live on the device and update inside
-the train and eval steps with no host sync.
+the train and eval steps with no host sync.  The updates add into the
+state's tensors in place, and read the thresholds from a constant kept on
+each device: no allocation of state and no host copy a step, so a CUDA
+graph can hold them (``train/loop.py``).
 
 ``exact_auc`` is the rank-based (Mann-Whitney) AUC computed on the host for
 final reporting; it is the unbinned ground truth the binned metric
@@ -28,6 +31,17 @@ def _thresholds(num: int = NUM_THRESHOLDS) -> np.ndarray:
     return np.asarray([-eps] + inner + [1.0 + eps], np.float32)
 
 
+_device_thresholds: dict[torch.device, torch.Tensor] = {}
+
+
+def _thresholds_on(device: torch.device) -> torch.Tensor:
+    """The thresholds on ``device``, copied there once."""
+    thr = _device_thresholds.get(device)
+    if thr is None:
+        thr = _device_thresholds[device] = torch.from_numpy(_thresholds()).to(device)
+    return thr
+
+
 @dataclasses.dataclass
 class AUCState:
     """Per-threshold confusion counts (each shape (NUM_THRESHOLDS,), f32)."""
@@ -48,18 +62,18 @@ def auc_update(state: AUCState,
                predictions: torch.Tensor,  # (B,) probabilities in [0, 1]
                weights: torch.Tensor | None = None,  # (B,) 0/1 padding mask
                ) -> AUCState:
-    thr = torch.from_numpy(_thresholds()).to(predictions.device)
+    """Adds the batch's counts to ``state`` in place; returns ``state``."""
+    thr = _thresholds_on(predictions.device)
     labels = labels.to(torch.float32)
     weights = torch.ones_like(labels) if weights is None else weights.to(torch.float32)
     pred_pos = (predictions[None, :] > thr[:, None]).to(torch.float32)  # (T, B)
     pos = (labels * weights)[None, :]
     neg = ((1.0 - labels) * weights)[None, :]
-    return AUCState(
-        tp=state.tp + (pred_pos * pos).sum(dim=1),
-        fp=state.fp + (pred_pos * neg).sum(dim=1),
-        fn=state.fn + ((1.0 - pred_pos) * pos).sum(dim=1),
-        tn=state.tn + ((1.0 - pred_pos) * neg).sum(dim=1),
-    )
+    state.tp.add_((pred_pos * pos).sum(dim=1))
+    state.fp.add_((pred_pos * neg).sum(dim=1))
+    state.fn.add_(((1.0 - pred_pos) * pos).sum(dim=1))
+    state.tn.add_(((1.0 - pred_pos) * neg).sum(dim=1))
+    return state
 
 
 def auc_compute(state: AUCState) -> torch.Tensor:
@@ -128,10 +142,13 @@ class ScalarMeanState:
 
 def mean_update(state: ScalarMeanState, values: torch.Tensor,
                 weights: torch.Tensor | None = None) -> ScalarMeanState:
+    """Adds the batch's weighted sum and weight to ``state`` in place;
+    returns ``state``."""
     if weights is None:
         weights = torch.ones_like(values)
-    return ScalarMeanState(total=state.total + (values * weights).sum(),
-                           count=state.count + weights.sum())
+    state.total.add_((values * weights).sum())
+    state.count.add_(weights.sum())
+    return state
 
 
 def mean_compute(state: ScalarMeanState) -> torch.Tensor:

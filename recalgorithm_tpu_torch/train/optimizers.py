@@ -24,6 +24,14 @@ package's ``maybe_fuse`` (``optax.flatten``, one flat buffer) has nothing
 left to do here: ``TrainerConfig.fuse_optimizer`` is accepted and changes
 nothing.  Every update is coordinate-wise, so it is bitwise the same
 whatever the grouping.
+
+A CUDA graph can hold the update of an optimizer class whose ``graph_safe``
+is True: :class:`Adam` and :class:`SGD`.  On CUDA parameters ``build`` makes
+them with the rate as a 0-d device tensor (Adam fused and ``capturable``,
+SGD fused), which :class:`Optimizer` writes in place before each update, so
+a replayed update reads the schedule's rate of its count.  Adagrad, RMSProp,
+FTRL and LazyAdam read the rate (and LazyAdam its bias correction) on the
+host: their steps stay eager.
 """
 
 from __future__ import annotations
@@ -82,6 +90,26 @@ def _with_grads(group: dict, state, init) -> tuple[list, list, list]:
             state[p].update(init(p))
         states.append(state[p])
     return params, [p.grad for p in params], states
+
+
+class Adam(torch.optim.Adam):
+    """``torch.optim.Adam``, whose update is optax's; graph-safe when built on
+    CUDA as ``build`` builds it (fused, ``capturable``, a tensor rate)."""
+
+    graph_safe = True
+
+    def __init__(self, params, lr, **kwargs):
+        super().__init__(params, lr=lr, **kwargs)
+        # a graph-safe instance also steps eagerly (a graph's warm-up,
+        # accumulation, a mesh): torch's warning about that does not apply
+        self._warned_capturable_if_run_uncaptured = True
+
+
+class SGD(torch.optim.SGD):
+    """``torch.optim.SGD`` without momentum, optax's ``sgd``; graph-safe when
+    built on CUDA as ``build`` builds it (fused, a tensor rate)."""
+
+    graph_safe = True
 
 
 class Adagrad(torch.optim.Optimizer):
@@ -238,45 +266,87 @@ class LazyAdam(torch.optim.Optimizer):
 
 class Optimizer:
     """A torch optimizer stepped as optax steps its transformation: the
-    scheduled rate of update ``count`` is set before the update."""
+    scheduled rate of update ``count`` is set before the update.
+
+    A step is two halves: :meth:`prepare` on the host (the rate written, the
+    count advanced) and :meth:`apply` on the device (the update, what a CUDA
+    graph holds).  ``capturable``: the update may be captured, i.e. the
+    optimizer's class is ``graph_safe`` and its rate a tensor.  ``version``
+    counts the loads of state, which replace the state tensors a captured
+    update reads."""
 
     def __init__(self, opt: torch.optim.Optimizer, schedule: Schedule):
         self.opt = opt
         self.schedule = schedule
         self.count = 0
+        self.version = 0
+        lr = opt.param_groups[0]["lr"]
+        self._lr = lr if torch.is_tensor(lr) else None
+        self._lr_written = float(lr) if self._lr is not None else None
+        self.capturable = self._lr is not None and getattr(type(opt), "graph_safe", False)
+        # what the instance was built with; a loaded state keeps them
+        self._built = [{k: g[k] for k in ("lr", "capturable", "fused") if k in g}
+                       for g in opt.param_groups]
 
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
 
-    def step(self) -> None:
+    def prepare(self) -> None:
+        """The rate of update ``count`` into the groups (into the tensor
+        rate in place, where it changed), then the count advanced."""
         lr = self.schedule(self.count)
-        for group in self.opt.param_groups:
-            group["lr"] = lr
-        self.opt.step()
+        if self._lr is None:
+            for group in self.opt.param_groups:
+                group["lr"] = lr
+        elif lr != self._lr_written:
+            self._lr.fill_(lr)
+            self._lr_written = lr
         self.count += 1
 
+    def apply(self) -> None:
+        """The update with the rate :meth:`prepare` wrote."""
+        self.opt.step()
+
+    def step(self) -> None:
+        self.prepare()
+        self.apply()
+
     def state_dict(self) -> dict:
-        return {"opt": self.opt.state_dict(), "count": self.count}
+        sd = self.opt.state_dict()  # its groups are copies
+        for group in sd["param_groups"]:
+            if torch.is_tensor(group["lr"]):
+                group["lr"] = float(group["lr"])
+        return {"opt": sd, "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
         self.opt.load_state_dict(state["opt"])
+        for group, built in zip(self.opt.param_groups, self._built):
+            group.update(built)
+        if self.capturable:  # the counts where a captured update reads them
+            for st in self.opt.state.values():
+                if "step" in st:
+                    st["step"] = st["step"].to(self._lr.device, torch.float32)
         self.count = int(state["count"])
+        self.version += 1
 
 
 def build(name: str, learning_rate: float | Schedule
           ) -> Callable[[Iterable[torch.nn.Parameter]], Optimizer]:
     """Optimizer factory with the reference's names and defaults; returns a
-    function of the parameters.  ``learning_rate`` is a float or a schedule."""
+    function of the parameters.  ``learning_rate`` is a float or a schedule.
+    Adam and SGD on CUDA parameters are built graph-safe (module
+    docstring)."""
     schedule = learning_rate if callable(learning_rate) else (lambda step: learning_rate)
     name = name.lower()
     if name == "adam":
-        make = lambda params, lr: torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        make = lambda params, lr: Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                       **_graph_options(params))
     elif name == "adagrad":
         make = Adagrad
     elif name == "rmsprop":
         make = RMSProp
     elif name == "sgd":
-        make = torch.optim.SGD
+        make = lambda params, lr: SGD(params, lr=lr, fused=_graph_options(params).get("fused"))
     elif name == "ftrl":
         if callable(learning_rate):
             raise ValueError("ftrl takes a constant learning rate")
@@ -285,7 +355,22 @@ def build(name: str, learning_rate: float | Schedule
         make = LazyAdam
     else:
         raise ValueError(f"unknown optimizer {name!r}")
-    return lambda params: Optimizer(make(params, schedule(0)), schedule)
+
+    def built(params) -> Optimizer:
+        params = list(params)
+        lr = schedule(0)
+        if name in ("adam", "sgd") and _graph_options(params):
+            lr = torch.tensor(float(lr), dtype=torch.float32, device=params[0].device)
+        return Optimizer(make(params, lr), schedule)
+    return built
+
+
+def _graph_options(params: list) -> dict:
+    """The options that make torch's Adam (both) and SGD (``fused``)
+    graph-safe on CUDA parameters; none elsewhere."""
+    if not params or params[0].device.type != "cuda":
+        return {}
+    return {"capturable": True, "fused": True}
 
 
 class DualOptimizer:
@@ -294,6 +379,12 @@ class DualOptimizer:
 
     def __init__(self, **parts: Optimizer):
         self.parts = parts
+
+    @property
+    def capturable(self) -> bool:
+        """Whether every part's update may be captured (its FTRL part's
+        cannot: a dual optimizer steps eagerly)."""
+        return all(opt.capturable for opt in self.parts.values())
 
     def zero_grad(self) -> None:
         for opt in self.parts.values():

@@ -1,0 +1,81 @@
+"""The train step as one CUDA graph, replayed: what ``Trainer.train_step``
+keeps for it (``train/loop.py``).
+
+A graph is keyed by the step's compaction choice and by the name, shape and
+dtype of each of the model's columns (:func:`key`).  It owns one device
+tensor a column (:attr:`StepGraph.inputs`), which the put fills in place
+(the same pageable copies as an eager step's, without new tensors).  The
+first step of a key runs eagerly on the trainer's side stream (the warm-up:
+it builds the optimizer's state and every lazily made handle); the second
+captures forward, loss, backward, optimizer update and metric update, then
+replays them; every later step replays.
+
+What a replay reads in place: the static inputs, the parameters, the
+optimizer's state and its tensor rate (``train/optimizers.py``), the
+streaming metric state (``train/metrics.py``), the dropout generator
+(registered with the graph, so a replay draws the masks the eager step
+would) and the tensors made inside the capture, which live in the graph's
+own memory pool.  A load of optimizer state replaces the tensors the graph
+reads (``Optimizer.version``): the trainer then drops its graphs and
+captures again.
+
+A replay calls no Python kernel wrapper: the hand kernels' ``.launches``
+counters (``ops/cuda``) count eager calls and captures, not replays; what a
+replay ran shows in a profiler's trace of the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+Key = tuple
+
+
+def engaged(device: torch.device, mesh, grad_accum_steps: int, optimizer) -> bool:
+    """Whether train steps replay graphs: on CUDA, with no process mesh
+    (its gloo collectives cannot be captured), no gradient accumulation (its
+    branch on the micro-step would need two graphs) and an optimizer whose
+    every update can be captured."""
+    return (torch.device(device).type == "cuda" and mesh is None and grad_accum_steps == 1
+            and bool(optimizer.capturable))
+
+
+def key(batch: Mapping[str, np.ndarray], compact: bool) -> Key:
+    """The graph of a host batch (the model's columns only)."""
+    return (compact, *sorted((k, np.shape(v), np.asarray(v).dtype.str)
+                             for k, v in batch.items()))
+
+
+@dataclasses.dataclass
+class StepGraph:
+    """One key's static inputs and, once captured, its graph."""
+
+    inputs: dict[str, torch.Tensor]
+    warm: bool = False                     # the eager warm-up step ran
+    graph: torch.cuda.CUDAGraph | None = None
+    loss: torch.Tensor | None = None       # the captured step's loss
+    grads: list | None = None              # the parameters' captured gradients
+    version: int = -1                      # the optimizer's, at the capture
+
+    @classmethod
+    def of(cls, batch: Mapping[str, np.ndarray], device) -> "StepGraph":
+        """Static inputs shaped as ``batch``'s columns, on ``device``."""
+        return cls({k: torch.empty(np.shape(v), dtype=torch.from_numpy(np.asarray(v)).dtype,
+                                   device=device) for k, v in batch.items()})
+
+    def put(self, batch: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        """The host batch's columns copied into the static inputs (its
+        other columns, such as ``_index``, stay on the host)."""
+        for k, x in self.inputs.items():
+            x.copy_(torch.from_numpy(np.asarray(batch[k])))
+        return self.inputs
+
+    def replay(self) -> torch.Tensor:
+        """Runs the captured step; returns a copy of its loss, which the
+        next replay does not overwrite."""
+        self.graph.replay()
+        return self.loss.clone()
