@@ -84,11 +84,12 @@ def build_parser(model_name: str | None = None) -> argparse.ArgumentParser:
                                             "without --synthetic)")
     parser.add_argument("--vocabulary_dir", help="the ETL's vocabulary txts "
                                                  "(required without --synthetic)")
-    parser.add_argument("--dataset", default="wechat", choices=("wechat", "douban"),
-                        help="schema family: 'wechat' (the reference dataset) or "
-                             "'douban' (data/douban.py's artifacts)")
+    parser.add_argument("--dataset", default="wechat", choices=("wechat", "douban", "criteo"),
+                        help="schema family: 'wechat' (the reference dataset), "
+                             "'douban' (data/douban.py's artifacts) or 'criteo' (MLPerf's "
+                             "multi-hot Criteo 1TB, on the synthetic stream only)")
     parser.add_argument("--synthetic", action="store_true",
-                        help="train on WeChat-shaped synthetic data")
+                        help="train on synthetic data shaped as --dataset's schema")
     parser.add_argument("--synthetic_vocab_scale", type=float, default=0.01)
     parser.add_argument("--limit_examples", type=int, default=None,
                         help="cap the examples read from each TFRecord split")
@@ -152,7 +153,11 @@ def list_models() -> None:
 
 
 def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
-    from recalgorithm_tpu_torch.features.schema import douban_schema, wechat_schema
+    from recalgorithm_tpu_torch.features.schema import (
+        criteo_schema,
+        douban_schema,
+        wechat_schema,
+    )
     from recalgorithm_tpu_torch.models import MODEL_REGISTRY
     from recalgorithm_tpu_torch.parallel import mesh as mesh_lib
     from recalgorithm_tpu_torch.parallel import multihost
@@ -177,6 +182,8 @@ def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
                if getattr(args, k) is None]
     if not args.synthetic and missing:
         parser.error(f"{', '.join(missing)} required without --synthetic")
+    if args.dataset == "criteo" and not args.synthetic:
+        parser.error("--dataset criteo runs on the synthetic stream only (--synthetic)")
     cfg = cfg_cls(**{f.name: getattr(args, f.name) for f in dataclasses.fields(cfg_cls)})
     device = resolve_device(args.device)
     backend = multihost.initialize(device=device)  # no-op for one process
@@ -191,7 +198,8 @@ def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
         print(f"process {multihost.process_index()} of {nproc} ({backend}, {device}); "
               + (f"mesh data {mesh.data_size} x model {mesh.num_model}" if mesh else "no mesh"))
     writer = multihost.process_index() == 0
-    schema_fn = {"wechat": wechat_schema, "douban": douban_schema}[args.dataset]
+    schema_fn = {"wechat": wechat_schema, "douban": douban_schema,
+                 "criteo": criteo_schema}[args.dataset]
     # a resumed run continues the batch stream from the restored step
     start = min(latest_checkpoint_step(args.model_dir), cfg.train_steps)
 
@@ -199,8 +207,10 @@ def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
     if args.synthetic:
         from recalgorithm_tpu_torch.data.synthetic import SyntheticConfig, SyntheticWeChat
 
+        # Criteo's multi-hot bags fill every slot; WeChat's histories vary
         gen = SyntheticWeChat(schema_fn(), SyntheticConfig(
-            seed=args.seed, vocab_scale=args.synthetic_vocab_scale))
+            seed=args.seed, vocab_scale=args.synthetic_vocab_scale,
+            full_sequences=args.dataset == "criteo"))
         schema = schema_fn(gen.vocab_sizes())
         train_iter = gen.batches(cfg.batch_size, cfg.train_steps - start, start_seed=start)
         eval_fn = lambda: gen.batches(cfg.batch_size, EVAL_BATCHES, start_seed=EVAL_START_SEED)
@@ -277,7 +287,7 @@ def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
     else:
         optimizer = optimizers.build(cfg.optimizer, optimizers.make_schedule(
             cfg.learning_rate, schedule=cfg.lr_schedule, warmup_steps=cfg.warmup_steps,
-            decay_steps=cfg.decay_steps))
+            decay_steps=cfg.decay_steps), **cfg.optimizer_options())
     trainer = Trainer(
         model, task_names, optimizer,
         TrainerConfig(model_dir=args.model_dir, train_steps=cfg.train_steps,

@@ -28,6 +28,9 @@ class SyntheticConfig:
     seed: int = 0
     # Shrink vocabularies for tests; None keeps the schema's sizes.
     vocab_scale: float | None = None
+    # Every sequence fills all its slots (multi-hot bags of a fixed size,
+    # as Criteo's); otherwise lengths are geometric, capped at max_length.
+    full_sequences: bool = False
 
 
 class SyntheticWeChat:
@@ -82,9 +85,12 @@ class SyntheticWeChat:
         for f in s.categorical:
             out[f.name] = self._zipf_ids(rng, (batch_size,), f.vocab)
         for f in s.sequence:
-            lengths = np.minimum(
-                rng.geometric(p=0.15, size=(batch_size,)), f.max_length
-            ).astype(np.int32)
+            if self.config.full_sequences:
+                lengths = np.full((batch_size,), f.max_length, np.int32)
+            else:
+                lengths = np.minimum(
+                    rng.geometric(p=0.15, size=(batch_size,)), f.max_length
+                ).astype(np.int32)
             ids = self._zipf_ids(rng, (batch_size, f.max_length), f.vocab)
             mask = np.arange(f.max_length)[None, :] < lengths[:, None]
             out[f.name] = np.where(mask, ids, 0).astype(np.int32)

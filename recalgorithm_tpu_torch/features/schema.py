@@ -300,3 +300,57 @@ def douban_schema(vocab_sizes: Mapping[str, int] | None = None) -> Schema:
         labels=DOUBAN_LABELS,
         vocab_sizes=sizes,
     )
+
+
+# ---------------------------------------------------------------------------
+# The Criteo 1TB click logs in MLPerf's multi-hot form (the recommendation
+# benchmark of MLPerf Training, mlcommons/training recommendation_v2/
+# torchrec_dlrm: its --num_embeddings_per_feature and --multi_hot_sizes
+# flags).  13 integer features (log1p'd, as every DenseFeature here), 26
+# categorical features, one click label.  A feature with one id a row is a
+# CategoricalFeature; one with a bag of h > 1 ids is a SequenceFeature of
+# max_length h, whose bag fills every slot.
+# ---------------------------------------------------------------------------
+
+CRITEO_NUM_DENSE = 13
+
+CRITEO_VOCAB_SIZES: tuple[int, ...] = (
+    40000000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63, 40000000, 3067956, 405282, 10,
+    2209, 11938, 155, 4, 976, 14, 40000000, 40000000, 40000000, 590152, 12973, 108, 36,
+)
+
+CRITEO_HOT_SIZES: tuple[int, ...] = (
+    3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100, 27, 10, 3, 1, 1,
+)
+
+CRITEO_LABELS: tuple[str, ...] = ("click",)
+
+
+def criteo_schema(vocab_sizes: Mapping[str, int] | None = None,
+                  hot_sizes: Sequence[int] | None = None) -> Schema:
+    """Build the multi-hot Criteo schema: fields ``cat_0`` .. ``cat_25``,
+    each with a vocabulary of its own name, and dense ``int_0`` ..
+    ``int_12``.
+
+    Args:
+      vocab_sizes: rows of each vocabulary (a chip's slice of a row-sharded
+        table, or a scaled-down one); defaults to the published sizes.
+      hot_sizes: ids a row of each of the 26 fields; defaults to the
+        published ``multi_hot_sizes``.
+    """
+    hots = tuple(CRITEO_HOT_SIZES if hot_sizes is None else hot_sizes)
+    if len(hots) != len(CRITEO_VOCAB_SIZES) or min(hots) < 1:
+        raise ValueError(f"26 hot sizes of at least 1 expected, got {hots}")
+    sizes = {f"cat_{i}": n for i, n in enumerate(CRITEO_VOCAB_SIZES)}
+    if vocab_sizes:
+        sizes.update(vocab_sizes)
+    return Schema(
+        dense=tuple(DenseFeature(f"int_{i}") for i in range(CRITEO_NUM_DENSE)),
+        categorical=tuple(CategoricalFeature(f"cat_{i}", f"cat_{i}")
+                          for i, h in enumerate(hots) if h == 1),
+        sequence=tuple(SequenceFeature(f"cat_{i}", f"cat_{i}", h)
+                       for i, h in enumerate(hots) if h > 1),
+        cross=(),
+        labels=CRITEO_LABELS,
+        vocab_sizes=sizes,
+    )

@@ -90,6 +90,11 @@ class TrainFlags:
     save_checkpoints_steps: int = 1000
     precision: str = "f32"
 
+    def optimizer_options(self) -> dict:
+        """Keyword options of ``optimizer`` beyond its rate, from the
+        config's own fields (none: the optimizer's defaults)."""
+        return {}
+
     @property
     def compute_dtype(self) -> torch.dtype | None:
         if self.precision == "f32":
@@ -125,7 +130,7 @@ def sigmoid_tasks(logits: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]
 class FieldEmbedder(nn.Module):
     """One EmbeddingCollection (always ``embed``) plus declarative field
     specs: ``fields`` is a sequence of (batch_key, vocab, kind) with kind in
-    {'scalar', 'mean'}; ``forward`` returns the embeddings in order."""
+    {'scalar', 'mean', 'sum'}; ``forward`` returns the embeddings in order."""
 
     def __init__(self, tables: Mapping[str, TableSpec],
                  fields: Sequence[tuple[str, str, str]],
@@ -139,8 +144,8 @@ class FieldEmbedder(nn.Module):
         for key, vocab, kind in self.fields:
             if kind == "scalar":
                 out.append(self.embed.embed_scalar(vocab, batch[key]))
-            elif kind == "mean":
-                out.append(self.embed.embed_pooled(vocab, batch[key], "mean"))
+            elif kind in ("mean", "sum"):
+                out.append(self.embed.embed_pooled(vocab, batch[key], kind))
             else:
                 raise ValueError(f"unknown field kind {kind!r}")
         return out

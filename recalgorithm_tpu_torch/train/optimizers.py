@@ -112,11 +112,32 @@ class SGD(torch.optim.SGD):
     graph_safe = True
 
 
+# A multi-tensor chain makes temporaries of every tensor it takes at once:
+# an update runs its chain over groups of at most this many elements (a
+# larger tensor alone), so beside tables of many GB its temporaries stay at
+# the size of one table.  Parameters this small in all run as one group.
+FOREACH_GROUP_ELEMENTS = 1 << 26
+
+
+def _groups(params: list, *lists: list):
+    """``params`` and the lists beside them cut into runs whose elements
+    add up to at most FOREACH_GROUP_ELEMENTS (a larger tensor alone)."""
+    start, total = 0, 0
+    for i, p in enumerate(params):
+        if i > start and total + p.numel() > FOREACH_GROUP_ELEMENTS:
+            yield (params[start:i], *(x[start:i] for x in lists))
+            start, total = i, 0
+        total += p.numel()
+    if params:
+        yield (params[start:], *(x[start:] for x in lists))
+
+
 class Adagrad(torch.optim.Optimizer):
     """``optax.adagrad(lr, initial_accumulator_value, eps)``: acc += g^2, then
     p -= lr * g * rsqrt(acc + eps) where acc > 0 (else no step).  The
     accumulator starts at the reference's 1e-8 (wide_and_deep.py:264-265),
-    as the JAX package's ``build("adagrad")`` sets it."""
+    as the JAX package's ``build("adagrad")`` sets it.  The update runs
+    over groups of at most FOREACH_GROUP_ELEMENTS elements."""
 
     def __init__(self, params, lr: float, initial_accumulator_value: float = 1e-8,
                  eps: float = 1e-7):
@@ -131,11 +152,13 @@ class Adagrad(torch.optim.Optimizer):
             if not params:  # no parameter of the group has a gradient
                 continue
             accs = [st["sum_of_squares"] for st in states]
-            torch._foreach_add_(accs, torch._foreach_mul(grads, grads))
-            # where(acc > 0, r, 0) as r * sign(acc): acc >= 0 and r is finite
-            scales = torch._foreach_rsqrt(torch._foreach_add(accs, group["eps"]))
-            torch._foreach_mul_(scales, torch._foreach_sign(accs))
-            torch._foreach_add_(params, torch._foreach_mul(scales, grads), alpha=-group["lr"])
+            for ps, gs, acs in _groups(params, grads, accs):
+                torch._foreach_add_(acs, torch._foreach_mul(gs, gs))
+                # where(acc > 0, r, 0) as r * sign(acc): acc >= 0 and r is finite
+                scales = torch._foreach_rsqrt(torch._foreach_add(acs, group["eps"]))
+                torch._foreach_mul_(scales, torch._foreach_sign(acs))
+                torch._foreach_add_(ps, torch._foreach_mul(scales, gs), alpha=-group["lr"])
+                del scales
 
 
 class RMSProp(torch.optim.Optimizer):
@@ -330,14 +353,18 @@ class Optimizer:
         self.version += 1
 
 
-def build(name: str, learning_rate: float | Schedule
+def build(name: str, learning_rate: float | Schedule, **options
           ) -> Callable[[Iterable[torch.nn.Parameter]], Optimizer]:
     """Optimizer factory with the reference's names and defaults; returns a
     function of the parameters.  ``learning_rate`` is a float or a schedule.
-    Adam and SGD on CUDA parameters are built graph-safe (module
-    docstring)."""
+    ``options`` go to the adagrad, rmsprop and ftrl classes (their keyword
+    arguments, such as Adagrad's ``initial_accumulator_value`` and ``eps``;
+    a config's ``optimizer_options()``).  Adam and SGD on CUDA parameters
+    are built graph-safe (module docstring)."""
     schedule = learning_rate if callable(learning_rate) else (lambda step: learning_rate)
     name = name.lower()
+    if options and name not in ("adagrad", "rmsprop", "ftrl"):
+        raise ValueError(f"{name} takes no options, got {sorted(options)}")
     if name == "adam":
         make = lambda params, lr: Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                        **_graph_options(params))
@@ -361,7 +388,7 @@ def build(name: str, learning_rate: float | Schedule
         lr = schedule(0)
         if name in ("adam", "sgd") and _graph_options(params):
             lr = torch.tensor(float(lr), dtype=torch.float32, device=params[0].device)
-        return Optimizer(make(params, lr), schedule)
+        return Optimizer(make(params, lr, **options), schedule)
     return built
 
 
