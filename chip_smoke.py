@@ -369,6 +369,24 @@ GRAPH_RANK_GAP = 1e-3
 GRAPH_LIMITS = {"loss_gap": GRAPH_MEAN_GAP, "metric_gap": GRAPH_MEAN_GAP,
                 "rank_metric_gap": GRAPH_RANK_GAP, "change_gap": 3e-4,
                 "change_gap_worst": 1e-1}
+# phase 19: the row-wise Adagrad kernel at the DLRM-DCNv2 cell's shapes
+# (portbench/configs/dlrm-dcnv2-criteo1tb.json): a 5,000,000-row table read
+# by the 100-hot bag at B = 8192, and the 3-row table at hot size 1; ids
+# floor(n u^2) + 1 as the cell's traffic draws them.  The kernel against
+# its twin: each tensor's norm gap within ROW_GAP, untouched rows bitwise.
+# Both sum a row's gradient rows in float32 in orders of their own (the
+# twin's index_add_ and the kernel's long segments add atomically): a sum
+# of K rows of either sign rounds to about sqrt(K) 6e-8 of the sum of its
+# terms' magnitudes, and the 3-row table's rows each sum about 2,700 (read
+# 2.0e-6 on the accumulator, where one row left out moves a row by about
+# 2%; the 5M-row table 2.0e-7).  Then a
+# DLRM-DCNv2 trainer at the cell's widths with tables of at most
+# ROW_STEP_ROWS rows, ROW_STEPS steps on the row path against the dense
+# chain from the same weights, within GRAPH_LIMITS' loss and change limits.
+ROW_CASES = ((5_000_000, 100, 8192), (3, 1, 8192))  # (vocabulary, hot size, B)
+ROW_DIM = 128
+ROW_GAP = 1e-5
+ROW_STEP_ROWS, ROW_STEP_BATCH, ROW_STEPS = 100_000, 4096, 3
 TIMER_ROUNDS = 7
 TIMER_TOL = 0.25
 STACKED = (1.5, 2.7)
@@ -2896,6 +2914,217 @@ def graph_zoo(work: str) -> None:
           f"their optimizer not capturable: {eager}", flush=True)
 
 
+def row_ids(vocab: int, n: int, gen: torch.Generator) -> torch.Tensor:
+    """``n`` ids ``floor(vocab u^2) + 1`` on the card (the cell's traffic)."""
+    u = torch.rand(n, device="cuda", generator=gen, dtype=torch.float64)
+    return (torch.floor(vocab * u * u) + 1).long()
+
+
+def kernel_device_ms(fn, name: str, iters: int = 20) -> tuple[float, float]:
+    """Device ms a call of ``fn`` spends in kernels whose name holds
+    ``name``, and in all its kernels and copies (a profiler trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    took = [(e.name, e.time_range.elapsed_us()) for e in events]
+    return (sum(us for n, us in took if name in n) / 1e3 / iters,
+            sum(us for _, us in took) / 1e3 / iters)
+
+
+def events_ms(fn, iters: int = 5) -> float:
+    """ms a call from CUDA events around ``iters`` calls (for calls that
+    wait on the device themselves, which ``cuda_ms`` refuses)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def row_adagrad_phase(card: str) -> dict:
+    """Phase 19 (constants ROW_*): the kernel against its twin and its byte
+    bound at the cell's shapes, the dense chain's time on the same table
+    beside it; DLRM-DCNv2's row-path step against the dense one; the row
+    path's backward and update under ``set_sync_debug_mode("error")``."""
+    import copy
+    import warnings
+
+    from recalgorithm_tpu_torch.embed import tables
+    from recalgorithm_tpu_torch.features.schema import CRITEO_HOT_SIZES, criteo_schema
+    from recalgorithm_tpu_torch.models.dlrm import DLRM, DLRMConfig
+    from recalgorithm_tpu_torch.ops.cuda import row_adagrad as ra
+    from recalgorithm_tpu_torch.train import optimizers
+    from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    def gap(a, b):
+        a, b = a.double(), b.double()
+        return float((a - b).norm() / b.norm().clamp(min=1e-300))
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    entries = []
+    for vocab, hot, b in ROW_CASES:
+        rows = tables.TableSpec("t", vocab, ROW_DIM).num_rows
+        ids = row_ids(vocab, hot * b, gen)
+        values = torch.randn(len(ids), ROW_DIM, device="cuda", generator=gen)
+        p = torch.randn(rows, ROW_DIM, device="cuda", generator=gen) * 0.1
+        acc = torch.zeros_like(p)  # the cell's accumulator start
+        distinct = int(torch.unique(ids).numel())
+        got_p, got_acc = p.clone(), acc.clone()
+        launches = ra.row_adagrad.launches
+        ra.row_adagrad(got_p, got_acc, ids, values, 0.004, 1e-8)
+        ra.row_adagrad_reference(p, acc, ids, values, 0.004, 1e-8)
+        torch.cuda.synchronize()
+        if ra.row_adagrad.launches != launches + 1:
+            raise AssertionError("row_adagrad did not launch its kernel")
+        untouched = torch.ones(rows, dtype=torch.bool, device="cuda")
+        untouched[ids] = False
+        gaps = {"param": gap(got_p, p), "acc": gap(got_acc, acc)}
+        still = bits_equal(got_p[untouched], p[untouched])
+        if max(gaps.values()) > ROW_GAP or not still:
+            raise AssertionError(f"row_adagrad at {vocab} rows, {len(ids)} ids: gaps {gaps} "
+                                 f"(limit {ROW_GAP}); untouched rows bitwise: {still}")
+        needed = 12 * len(ids) + 4 * ROW_DIM * len(ids) + 16 * ROW_DIM * distinct
+        bound_ms = needed / PEAK_BYTES * 1e3
+        call = lambda: ra.row_adagrad(got_p, got_acc, ids, values, 0.004, 1e-8)
+        kernel_ms, call_ms = kernel_device_ms(call, "row_adagrad_kernel")
+        twin_ms = events_ms(lambda: ra.row_adagrad_reference(p, acc, ids, values, 0.004, 1e-8))
+        # the dense chain this replaces: a dense gradient's Adagrad step over the table
+        dense_p = torch.nn.Parameter(p.clone())
+        opt = optimizers.Adagrad([dense_p], lr=0.004, initial_accumulator_value=0.0, eps=1e-8)
+        dense_p.grad = torch.zeros_like(p).index_add_(0, ids, values)
+        dense_ms = events_ms(opt.step)
+        del opt, dense_p
+        entry = {"rows": rows, "ids": len(ids), "distinct": distinct, "gaps": gaps,
+                 "kernel_ms": kernel_ms, "call_ms": call_ms, "bound_ms": bound_ms,
+                 "roofline_pct": 100 * bound_ms / kernel_ms, "twin_ms": twin_ms,
+                 "dense_chain_ms": dense_ms}
+        print(f"  {rows} rows x {ROW_DIM}, {len(ids)} ids ({distinct} distinct): kernel "
+              f"{kernel_ms:.5f} ms against a {bound_ms:.5f} ms byte bound "
+              f"({entry['roofline_pct']:.1f}%); the call (sort, scratch, kernel) {call_ms:.5f} "
+              f"ms; twin {twin_ms:.4f} ms; the dense chain over the table {dense_ms:.4f} ms; "
+              f"gaps {gaps}")
+        entries.append(entry)
+        del p, acc, got_p, got_acc, values, ids
+        torch.cuda.empty_cache()
+
+    # DLRM-DCNv2 at the cell's widths, tables capped at ROW_STEP_ROWS rows
+    vocabs = {f"cat_{i}": min(n, ROW_STEP_ROWS)
+              for i, n in enumerate(criteo_schema().vocab_sizes.values())}
+    schema = criteo_schema(vocabs)
+    cfg = DLRMConfig(interaction="dcn", embedding_dim=ROW_DIM, bottom_hidden_units=(512, 256, 128),
+                     hidden_units=(1024, 1024, 512, 256), batch_norm=False, dropout_rate=0.0,
+                     num_cross_layers=3, cross_low_rank=512, optimizer="adagrad",
+                     learning_rate=0.004, adagrad_initial_accumulator_value=0.0,
+                     adagrad_eps=1e-8, task_names=("click",), batch_size=ROW_STEP_BATCH)
+    torch.manual_seed(19)
+    model = DLRM(cfg, schema)
+    rng = np.random.default_rng(19)
+    batches = []
+    for _ in range(ROW_STEPS + 2):
+        hb = {"dense": np.log1p(rng.poisson(3.0, (ROW_STEP_BATCH, 13))).astype(np.float32),
+              "labels": (rng.random((ROW_STEP_BATCH, 1)) < 0.034).astype(np.float32)}
+        for i, hot in enumerate(CRITEO_HOT_SIZES):
+            n = vocabs[f"cat_{i}"]
+            ids = (np.floor(n * rng.random((ROW_STEP_BATCH, hot)) ** 2) + 1).astype(np.int32)
+            hb[f"cat_{i}"] = ids[:, 0] if hot == 1 else ids
+            if hot > 1:
+                hb[f"cat_{i}_len"] = np.full(ROW_STEP_BATCH, hot, np.int32)
+        batches.append(hb)
+    runs, trainers = {}, {}
+    for rows in (True, False):
+        tr = trainers[rows] = Trainer(
+            copy.deepcopy(model), ("click",),
+            optimizers.build("adagrad", 0.004, **cfg.optimizer_options()),
+            TrainerConfig(model_dir=tempfile.mkdtemp(), save_checkpoints_steps=0,
+                          handle_sigterm=False), device="cuda")
+        if tr.row_grads is not True:
+            raise AssertionError("DLRM-DCNv2's Adagrad trainer does not take row gradients")
+        tr.row_grads = rows
+        launches = ra.row_adagrad.launches
+        losses = [float(tr.train_step(hb)) for hb in batches[:ROW_STEPS]]
+        runs[rows] = (losses, ra.row_adagrad.launches - launches)
+    if runs[True][1] != 26 * ROW_STEPS or runs[False][1] != 0:
+        raise AssertionError(f"row kernel launches {runs[True][1]} (row path), "
+                             f"{runs[False][1]} (dense): want {26 * ROW_STEPS} and 0")
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(runs[True][0], runs[False][0]))
+    init = dict(model.named_parameters())
+    changes = []
+    for (name, p), q in zip(trainers[True].model.named_parameters(),
+                            trainers[False].model.parameters()):
+        want = q.detach() - init[name].detach().cuda()
+        changes.append(gap(p.detach() - init[name].detach().cuda(), want))
+    acc_gaps = [gap(trainers[True].optimizer.opt.state[p]["sum_of_squares"],
+                    trainers[False].optimizer.opt.state[q]["sum_of_squares"])
+                for p, q in zip(trainers[True].model.parameters(),
+                                trainers[False].model.parameters())]
+    numbers = {"loss_gap": loss_gap, "change_gap": float(np.median(changes)),
+               "change_gap_worst": max(changes), "acc_gap_worst": max(acc_gaps)}
+    print(f"  DLRM-DCNv2 at the cell's widths, tables <= {ROW_STEP_ROWS} rows, B="
+          f"{ROW_STEP_BATCH}: {ROW_STEPS} steps on the row path against the dense chain: "
+          f"{json.dumps(numbers)}; losses {runs[True][0]} vs {runs[False][0]}")
+    limits = {k: GRAPH_LIMITS[k] for k in ("change_gap", "change_gap_worst")}
+    limits |= {"loss_gap": 1e-3, "acc_gap_worst": GRAPH_LIMITS["change_gap"]}
+    beyond = {k: (v, limits[k]) for k, v in numbers.items() if not v <= limits[k]}
+    if beyond:
+        raise AssertionError(f"the row path's DLRM-DCNv2 steps beyond their limits: {beyond}")
+
+    # host-device synchronizations of the backward and the update, each path,
+    # two steps each under the "warn" mode (torch's message, and where in
+    # Python it came from), then a row-path step under the "error" mode
+    def backward_and_update(tr, rows, hb, mode):
+        batch = tr._put_batch(hb)
+        tr.optimizer.zero_grad()
+        with tables.row_sparse_grads(rows):
+            loss, _ = tr._loss_and_logits(batch)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode(mode)
+            try:
+                loss.backward()
+                tr.optimizer.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                if "called a synchronizing CUDA operation" in str(w.message)]
+
+    syncs = {rows: [backward_and_update(tr, rows, hb, "warn") for hb in batches[-2:]]
+             for rows, tr in trainers.items()}
+    backward_and_update(trainers[True], True, batches[0], "error")
+    print(f"  synchronizing calls in two steps' backward and update (where): row path "
+          f"{syncs[True]}, dense path {syncs[False]}; a row-path step then ran under "
+          "set_sync_debug_mode('error')")
+    if syncs[True][-1]:
+        raise AssertionError(f"the row path's backward and update synchronized: {syncs[True]}")
+    profs = {}
+    for rows, tr in trainers.items():
+        tr.row_grads = rows
+        prof = profile_train_step(tr, batches, None, iters=4)
+        profs[rows] = prof
+        print(f"  DLRM-DCNv2 step (tables <= {ROW_STEP_ROWS} rows, B={ROW_STEP_BATCH}), "
+              f"{'row path' if rows else 'dense chain'}: "
+              + json.dumps({k: v for k, v in prof.items() if k != "by_name"}))
+    del trainers, model
+    torch.cuda.empty_cache()
+    print(card)
+    return {"kernel": entries, "dlrm_step": numbers,
+            "syncs": {"row path": syncs[True], "dense chain": syncs[False]},
+            "step_busy_ms": {"row path": profs[True]["busy_ms"],
+                             "dense chain": profs[False]["busy_ms"]}}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3302,6 +3531,11 @@ def main() -> int:
     graph_phase(work, SyntheticWeChat(wechat_schema(), SyntheticConfig(seed=7, vocab_scale=1.0)),
                 step_dir, export_dir)
 
+    phase("19. the row-wise Adagrad kernel at DLRM-DCNv2's shapes against its twin and its "
+          "byte bound; DLRM-DCNv2 steps on the row path against the dense chain; no host "
+          "synchronization in the row path's backward and update")
+    row_report = row_adagrad_phase(card)
+
     din_by_path = {"serving": serve_launches,
                    "DIN stream": file_counts["DIN stream"]["din_attention"],
                    **{path: c["din_attention"] for path, c in artifact_counts.items()},
@@ -3312,7 +3546,7 @@ def main() -> int:
         reports, {"BST": bst_counts_run, "AutoInt": autoint_counts,
                   "BST from files": file_counts["BST from files"], **artifact_counts,
                   **mesh_counts, **{path: c for path, c in default_counts.items()
-                                    if "BST" in path}})]}
+                                    if "BST" in path}})], "row_adagrad": row_report}
     print(f"\nchip_smoke.py took {time.perf_counter() - t_start:.1f} s, the kernels' build "
           "included")
     print(card)

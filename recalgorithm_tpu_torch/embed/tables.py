@@ -20,7 +20,14 @@ different answers for ids outside ``[1, num_rows)``:
 as the JAX package does.  Inside :func:`compact_grad_scatter` (the trainer's
 train step) a long sequence gather of a whole f32 table takes
 ``ops/compact_scatter.take_compact_bwd``: the same rows, and a table
-gradient that scatters only the live (non-PAD) entries.
+gradient that scatters only the live (non-PAD) entries.  Inside
+:func:`row_sparse_grads` (the trainer's eager step under an optimizer that
+applies row gradients) a lookup of a whole f32 table makes a row gradient
+instead of a dense ``(num_rows, dim)`` one: a sparse COO tensor, uncoalesced,
+of each clamped id beside its gradient row (``F.embedding(sparse=True)``;
+nothing counts or merges its rows, so nothing waits on the device).  A
+second lookup of the table in one step concatenates onto it.  The compacted
+branch is not taken there: the row gradient makes nothing dense.
 
 A gather-path table quantized for serving
 (:meth:`EmbeddingCollection.quantize_`) gathers int8 rows and their per-row
@@ -70,6 +77,10 @@ DENSE_LOOKUP_MAX_ROWS = 2048
 # overflows it (cs.batch_fits_compact, on the host) to a step with this off.
 _COMPACT_SCATTER = False
 
+# When True (row_sparse_grads), a lookup of a whole f32 table (no process
+# mesh, not int8) makes a row gradient; see the module docstring.
+_ROW_SPARSE = False
+
 
 @contextlib.contextmanager
 def compact_grad_scatter(enabled: bool = True):
@@ -81,6 +92,18 @@ def compact_grad_scatter(enabled: bool = True):
         yield
     finally:
         _COMPACT_SCATTER = prev
+
+
+@contextlib.contextmanager
+def row_sparse_grads(enabled: bool = True):
+    """Turn the tables' row gradients on (or off) for the lookups made
+    inside this context; a backward keeps the choice of its forward."""
+    global _ROW_SPARSE
+    prev, _ROW_SPARSE = _ROW_SPARSE, enabled
+    try:
+        yield
+    finally:
+        _ROW_SPARSE = prev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,9 +173,11 @@ class EmbeddingCollection(nn.Module):
         return self.specs[table].num_rows <= DENSE_LOOKUP_MAX_ROWS
 
     def _gather(self, table: str, weight: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        """Rows ``idx`` (in range) of ``weight``, a table or this rank's shard."""
+        """Rows ``idx`` (in range) of ``weight``, a table or this rank's shard
+        (under :func:`row_sparse_grads` a whole f32 table's gradient is rows)."""
         if self.mesh is None:
-            return F.embedding(idx, weight)
+            return F.embedding(idx, weight,
+                               sparse=_ROW_SPARSE and weight.dtype == torch.float32)
         return sharded_lookup(weight, idx, self.mesh, self.specs[table].num_rows)
 
     def _clip_gather(self, table: str, ids: torch.Tensor,
@@ -169,8 +194,10 @@ class EmbeddingCollection(nn.Module):
         ``compact`` (a sequence lookup): under :func:`compact_grad_scatter`
         the gather of a whole f32 table (no process mesh, not int8) with at
         least ``cs.MIN_IDS`` ids and ``T >= cs.LONG_SEQ_T`` is
-        ``cs.take_compact_bwd``, the JAX engine's gate."""
-        if (compact and _COMPACT_SCATTER and self.mesh is None and ids.dim() == 2
+        ``cs.take_compact_bwd``, the JAX engine's gate, unless
+        :func:`row_sparse_grads` is on."""
+        if (compact and _COMPACT_SCATTER and not _ROW_SPARSE and self.mesh is None
+                and ids.dim() == 2
                 and table in self.tables and ids.numel() >= cs.MIN_IDS
                 and ids.shape[-1] >= cs.LONG_SEQ_T):
             return cs.take_compact_bwd(self.tables[table], ids)

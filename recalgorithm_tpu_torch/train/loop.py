@@ -26,6 +26,13 @@ Responsibilities (the reference's Estimator usage, wide_and_deep.py:331-376):
     the gradient is exact at every density;
   * ``fuse_optimizer`` is accepted and changes nothing: every optimizer's
     update is already one multi-tensor chain (``train/optimizers.py``);
+  * row gradients of the tables (``tables.row_sparse_grads``): where there
+    is no process mesh, no gradient accumulation and the optimizer is one
+    whose class applies row gradients (``optimizers.Adagrad``;
+    ``row_grads_engaged``), an eager step's lookups of whole f32 tables make
+    row gradients and the update touches those rows alone.  Everywhere else
+    (a mesh's all-reduce and the accumulator's running mean want dense
+    gradients, as does the dual optimizer's FTRL) the gradients are dense;
   * on CUDA the whole step is one CUDA graph, replayed
     (``train/step_graph.py``): where there is no process mesh, no gradient
     accumulation and the optimizer's updates can be captured (Adam and SGD;
@@ -92,6 +99,7 @@ from recalgorithm_tpu_torch.parallel import mesh as mesh_lib
 from recalgorithm_tpu_torch.parallel import multihost
 from recalgorithm_tpu_torch.serving.predictor import resolve_device
 from recalgorithm_tpu_torch.train import metrics as M
+from recalgorithm_tpu_torch.train import optimizers
 from recalgorithm_tpu_torch.train import step_graph
 from recalgorithm_tpu_torch.utils.summary import SummaryWriter, span
 
@@ -146,6 +154,16 @@ class TrainerConfig:
     grad_accum_steps: int = 1
 
 
+def row_grads_engaged(mesh, grad_accum_steps: int, optimizer) -> bool:
+    """Whether eager steps give the tables row gradients: no process mesh
+    (``_reduce_grads`` all-reduces dense gradients), no gradient
+    accumulation (its running mean is dense) and a single optimizer whose
+    class applies row gradients (a dual optimizer's FTRL does not)."""
+    return (mesh is None and grad_accum_steps == 1
+            and isinstance(optimizer, optimizers.Optimizer)
+            and getattr(type(optimizer.opt), "row_grads", False))
+
+
 class Trainer:
     def __init__(self, model: torch.nn.Module, task_names: tuple[str, ...],
                  optimizer: Callable, config: TrainerConfig,
@@ -196,6 +214,7 @@ class Trainer:
         self._side = torch.cuda.Stream(self.device) if self._step_graphs is not None else None
         self._grads_of = None  # the graph whose gradients the parameters hold
         self.replays = 0  # steps that ran as a graph replay
+        self.row_grads = row_grads_engaged(mesh, config.grad_accum_steps, self.optimizer)
 
     def _fresh_metrics(self) -> MetricsState:
         return MetricsState(M.ScalarMeanState.init(self.device),
@@ -341,7 +360,7 @@ class Trainer:
         self._grads_of = None
         with span("train.forward"):
             self.model.train()
-            with tables.compact_grad_scatter(compact):
+            with tables.compact_grad_scatter(compact), tables.row_sparse_grads(self.row_grads):
                 loss, logits = self._loss_and_logits(batch)
         with span("train.backward"):
             self.optimizer.zero_grad()

@@ -31,7 +31,8 @@ them with the rate as a 0-d device tensor (Adam fused and ``capturable``,
 SGD fused), which :class:`Optimizer` writes in place before each update, so
 a replayed update reads the schedule's rate of its count.  Adagrad, RMSProp,
 FTRL and LazyAdam read the rate (and LazyAdam its bias correction) on the
-host: their steps stay eager.
+host: their steps stay eager.  :class:`Adagrad` (``row_grads``) also takes
+a table's row gradient and updates the touched rows alone.
 """
 
 from __future__ import annotations
@@ -40,6 +41,9 @@ import math
 from typing import Callable, Iterable, Sequence
 
 import torch
+
+from recalgorithm_tpu_torch.ops.cuda.row_adagrad import row_adagrad
+from recalgorithm_tpu_torch.utils.summary import span
 
 Schedule = Callable[[int], float]
 
@@ -136,8 +140,17 @@ class Adagrad(torch.optim.Optimizer):
     """``optax.adagrad(lr, initial_accumulator_value, eps)``: acc += g^2, then
     p -= lr * g * rsqrt(acc + eps) where acc > 0 (else no step).  The
     accumulator starts at the reference's 1e-8 (wide_and_deep.py:264-265),
-    as the JAX package's ``build("adagrad")`` sets it.  The update runs
-    over groups of at most FOREACH_GROUP_ELEMENTS elements."""
+    as the JAX package's ``build("adagrad")`` sets it.  A dense gradient's
+    update runs over groups of at most FOREACH_GROUP_ELEMENTS elements.
+
+    ``row_grads``: a parameter whose gradient is a row gradient (a sparse
+    COO tensor of ids beside gradient rows, ``embed/tables.
+    row_sparse_grads``) is updated on those rows alone, by
+    ``ops/cuda/row_adagrad.row_adagrad`` (span ``train.row_update``): an
+    untouched row's gradient is 0 and it would not move, so the result is
+    the dense update's.  Its state stays the dense ``sum_of_squares``."""
+
+    row_grads = True
 
     def __init__(self, params, lr: float, initial_accumulator_value: float = 1e-8,
                  eps: float = 1e-7):
@@ -149,7 +162,15 @@ class Adagrad(torch.optim.Optimizer):
         for group in self.param_groups:
             params, grads, states = _with_grads(group, self.state, lambda p: {
                 "sum_of_squares": torch.full_like(p, group["initial_accumulator_value"])})
-            if not params:  # no parameter of the group has a gradient
+            dense = [i for i, g in enumerate(grads) if not g.is_sparse]
+            if len(dense) < len(params):
+                with span("train.row_update"):
+                    for p, g, st in zip(params, grads, states):
+                        if g.is_sparse:
+                            row_adagrad(p, st["sum_of_squares"], g._indices()[0],
+                                        g._values(), group["lr"], group["eps"])
+                params, grads, states = ([x[i] for i in dense] for x in (params, grads, states))
+            if not params:  # no parameter of the group has a dense gradient
                 continue
             accs = [st["sum_of_squares"] for st in states]
             for ps, gs, acs in _groups(params, grads, accs):
