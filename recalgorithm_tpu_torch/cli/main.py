@@ -161,9 +161,9 @@ def main(argv: list[str] | None = None, model_name: str | None = None) -> dict:
     from recalgorithm_tpu_torch.models import MODEL_REGISTRY
     from recalgorithm_tpu_torch.parallel import mesh as mesh_lib
     from recalgorithm_tpu_torch.parallel import multihost
-    from recalgorithm_tpu_torch.serving.predictor import resolve_device
     from recalgorithm_tpu_torch.train import optimizers
     from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig, latest_checkpoint_step
+    from recalgorithm_tpu_torch.utils.device import resolve_device
     from recalgorithm_tpu_torch.utils.summary import profile
 
     argv = list(sys.argv[1:] if argv is None else argv)

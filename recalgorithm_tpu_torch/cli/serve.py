@@ -146,8 +146,9 @@ def build_server(args) -> tuple[ThreadingHTTPServer, dict]:
     caller serves and closes every batcher.  ``args.device`` (default
     ``cuda``) places the model; no card and no ``cpu`` request raises."""
     from recalgorithm_tpu_torch.features.schema import wechat_schema
-    from recalgorithm_tpu_torch.serving.predictor import HLOPredictor, Predictor, resolve_device
+    from recalgorithm_tpu_torch.serving.predictor import HLOPredictor, Predictor
     from recalgorithm_tpu_torch.serving.server import BatchingPredictor
+    from recalgorithm_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(getattr(args, "device", None))
     vocabs = None

@@ -26,11 +26,13 @@ from __future__ import annotations
 
 import itertools
 import os
-from typing import Iterable, Iterator, Mapping
+from typing import Collection, Iterable, Iterator, Mapping
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from recalgorithm_tpu_torch.utils.device import to_device
 
 
 def initialize(coordinator_address: str | None = None, num_processes: int | None = None,
@@ -114,18 +116,21 @@ def host_shard_range(total: int, mesh=None) -> tuple[int, int]:
 
 
 def global_batch(local_batch: Mapping[str, np.ndarray], mesh, global_batch_size: int,
-                 device: str | torch.device) -> dict[str, torch.Tensor]:
-    """This rank's rows of a global batch, on ``device``.  Each data shard
-    holds ``global_batch_size / mesh.data_size`` rows; no global tensor is
-    built (the collectives of the step see the others' rows)."""
-    rows = {len(v) for v in local_batch.values()}
+                 device: str | torch.device,
+                 columns: Collection[str] | None = None) -> dict[str, torch.Tensor]:
+    """This rank's rows of a global batch (its ``columns``; all where None),
+    on ``device``.  Each data shard holds ``global_batch_size /
+    mesh.data_size`` rows; no global tensor is built (the collectives of the
+    step see the others' rows)."""
+    batch = to_device(local_batch, device, columns)
+    rows = {len(v) for v in batch.values()}
     if len(rows) != 1:
         raise ValueError(f"columns of unequal length: {sorted(rows)}")
     local_rows = rows.pop()
     if local_rows * mesh.data_size != global_batch_size:
         raise ValueError(f"{local_rows} local rows x {mesh.data_size} data shards != "
                          f"global batch {global_batch_size}")
-    return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in local_batch.items()}
+    return batch
 
 
 def all_gather_rows(x: torch.Tensor, group, size: int) -> torch.Tensor:

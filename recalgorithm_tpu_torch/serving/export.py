@@ -32,6 +32,7 @@ from torch import nn
 # the op registrations torch.export.load needs to resolve the kernel nodes
 from recalgorithm_tpu_torch.ops.cuda import bst_attention as _bst_ops  # noqa: F401
 from recalgorithm_tpu_torch.ops.cuda import din_attention as _din_ops  # noqa: F401
+from recalgorithm_tpu_torch.utils.device import to_device
 
 
 class _Serve(nn.Module):
@@ -82,8 +83,8 @@ def export_stablehlo(
     served = _Serve(_served_copy(model, quantize_embeddings))
     device = next(served.parameters()).device
     spec = _input_spec(schema, batch_size)
-    example = {name: torch.from_numpy(np.zeros(shape, dtype)).to(device)
-               for name, (shape, dtype) in spec.items()}
+    example = to_device({name: np.zeros(shape, dtype) for name, (shape, dtype) in spec.items()},
+                        device)
     with torch.no_grad():
         program = torch.export.export(served, (example,), strict=False)
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
@@ -105,18 +106,17 @@ def export_stablehlo(
 def load_exported(path: str, device: torch.device):
     """Load an artifact onto ``device`` (the whole program moved there, so its
     kernel nodes dispatch to the kernels on a card); returns a
-    callable(batch of numpy arrays in the manifest's layout) -> {task:
-    probabilities on ``device``}, with the program as its ``.program``."""
+    callable(batch of numpy arrays in the manifest's layout: its inputs
+    alone) -> {task: probabilities on ``device``}, with the program as its
+    ``.program``."""
     from torch.export.passes import move_to_device_pass
 
     program = move_to_device_pass(torch.export.load(path), device)
     module = program.module()
 
     def call(batch: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
-        inputs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                  for k, v in batch.items() if k not in ("labels", "_weights")}
         with torch.no_grad():
-            return module(inputs)
+            return module(to_device(batch, device))
 
     call.program = program
     return call

@@ -25,17 +25,8 @@ from torch import nn
 
 from recalgorithm_tpu_torch.convert import load_export
 from recalgorithm_tpu_torch.serving.export import load_exported
+from recalgorithm_tpu_torch.utils.device import resolve_device, to_device
 from recalgorithm_tpu_torch.utils.summary import span
-
-
-def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` means ``cuda``; a CUDA device without a card raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available: pass device='cpu' (--device cpu) to run "
-            "on the CPU")
-    return dev
 
 
 class Predictor:
@@ -76,8 +67,7 @@ class Predictor:
         (the forward and the copy back, which waits for the device)."""
         with torch.inference_mode():
             with span("predict.put"):
-                tb = {k: torch.from_numpy(np.array(v)).to(self.device)
-                      for k, v in batch.items()}
+                tb = to_device(batch, self.device)
             with span("predict.forward"):
                 logits, _ = self.model(tb)
                 return {k: torch.sigmoid(v).cpu().numpy() for k, v in logits.items()}

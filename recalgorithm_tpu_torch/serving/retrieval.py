@@ -28,8 +28,8 @@ import torch
 from torch import nn
 
 from recalgorithm_tpu_torch.parallel import multihost
-from recalgorithm_tpu_torch.serving.predictor import resolve_device
 from recalgorithm_tpu_torch.serving.quantize import quantize_table
+from recalgorithm_tpu_torch.utils.device import resolve_device, to_device
 
 # the largest width whose int8 x int8 row products are exact in an f32
 # matmul: |sum| <= 127^2 * D must stay below 2^24
@@ -136,8 +136,7 @@ class Retriever:
         self._inputs = frozenset(model.schema.batch_spec(1))
 
     def _embed(self, method, batch: Mapping) -> torch.Tensor:
-        tb = {k: torch.from_numpy(np.asarray(v)).to(self.device)
-              for k, v in batch.items() if k in self._inputs}
+        tb = to_device(batch, self.device, self._inputs)
         with torch.no_grad():
             return method(tb)
 

@@ -26,19 +26,22 @@ Responsibilities (the reference's Estimator usage, wide_and_deep.py:331-376):
     the gradient is exact at every density;
   * ``fuse_optimizer`` is accepted and changes nothing: every optimizer's
     update is already one multi-tensor chain (``train/optimizers.py``);
-  * row gradients of the tables (``tables.row_sparse_grads``): where there
+  * how a step runs, chosen once from the mesh, the accumulation, the
+    device and the optimizer (``step_graph.engaged``):
+    row gradients of the tables (``tables.row_sparse_grads``): where there
     is no process mesh, no gradient accumulation and the optimizer is one
-    whose class applies row gradients (``optimizers.Adagrad``;
-    ``row_grads_engaged``), an eager step's lookups of whole f32 tables make
-    row gradients and the update touches those rows alone.  Everywhere else
-    (a mesh's all-reduce and the accumulator's running mean want dense
-    gradients, as does the dual optimizer's FTRL) the gradients are dense;
+    whose class applies row gradients (``optimizers.Adagrad``), a step's
+    lookups of whole f32 tables make row gradients and the update touches
+    those rows alone.  Everywhere else (a mesh's all-reduce and the
+    accumulator's running mean want dense gradients, as does the dual
+    optimizer's FTRL) the gradients are dense;
   * on CUDA the whole step is one CUDA graph, replayed
     (``train/step_graph.py``): where there is no process mesh, no gradient
-    accumulation and the optimizer's updates can be captured (Adam and SGD;
-    ``step_graph.engaged``), a key's (compaction choice, columns' shapes)
-    first step runs eagerly, its second captures and replays, and every
-    later one replays.  Everywhere else every step runs eagerly;
+    accumulation and the optimizer's updates can be captured (Adam and SGD),
+    a key's (compaction choice, columns' shapes) first step runs eagerly,
+    its second captures and replays, and every later one replays.  The
+    eager step and the capture run one body (``_step_body``).  Everywhere
+    else every step runs eagerly;
   * gradient accumulation (``grad_accum_steps`` = k, ``optax.MultiSteps``
     semantics): the optimizer is applied every k micro-batches with the
     running mean of their gradients, so its count (Adam's bias correction,
@@ -74,8 +77,8 @@ Data contract: iterables of host batches (dict[str, np.ndarray]) with fixed
 shapes; an optional ``"_weights"`` (B,) 0/1 mask marks real rows in padded
 eval tails.  Only the model's inputs (the schema's batch columns) and
 ``_weights`` go to the device: metadata such as ``_index`` stays on the
-host.  The model is built (and initialised) by the caller; the trainer moves
-it to its device.
+host.  The put is ``utils/device.to_device``.  The model is built (and
+initialised) by the caller; the trainer moves it to its device.
 """
 
 from __future__ import annotations
@@ -97,10 +100,9 @@ from recalgorithm_tpu_torch.ops import compact_scatter as cs
 from recalgorithm_tpu_torch.ops.activations import Dropout
 from recalgorithm_tpu_torch.parallel import mesh as mesh_lib
 from recalgorithm_tpu_torch.parallel import multihost
-from recalgorithm_tpu_torch.serving.predictor import resolve_device
 from recalgorithm_tpu_torch.train import metrics as M
-from recalgorithm_tpu_torch.train import optimizers
 from recalgorithm_tpu_torch.train import step_graph
+from recalgorithm_tpu_torch.utils.device import resolve_device, to_device
 from recalgorithm_tpu_torch.utils.summary import SummaryWriter, span
 
 CHECKPOINTS_KEPT = 3
@@ -154,16 +156,6 @@ class TrainerConfig:
     grad_accum_steps: int = 1
 
 
-def row_grads_engaged(mesh, grad_accum_steps: int, optimizer) -> bool:
-    """Whether eager steps give the tables row gradients: no process mesh
-    (``_reduce_grads`` all-reduces dense gradients), no gradient
-    accumulation (its running mean is dense) and a single optimizer whose
-    class applies row gradients (a dual optimizer's FTRL does not)."""
-    return (mesh is None and grad_accum_steps == 1
-            and isinstance(optimizer, optimizers.Optimizer)
-            and getattr(type(optimizer.opt), "row_grads", False))
-
-
 class Trainer:
     def __init__(self, model: torch.nn.Module, task_names: tuple[str, ...],
                  optimizer: Callable, config: TrainerConfig,
@@ -207,14 +199,14 @@ class Trainer:
         self._inputs = frozenset(self.model.schema.batch_spec(1)) | {"_weights"}
         # a batch's row count as a device constant, by row count
         self._rows: dict[int, torch.Tensor] = {}
+        paths = step_graph.engaged(self.device, mesh, config.grad_accum_steps, self.optimizer)
         # the step's CUDA graphs by key (step_graph.py); None: every step eager
         self._step_graphs: dict[step_graph.Key, step_graph.StepGraph] | None = (
-            {} if step_graph.engaged(self.device, mesh, config.grad_accum_steps,
-                                     self.optimizer) else None)
-        self._side = torch.cuda.Stream(self.device) if self._step_graphs is not None else None
+            {} if paths.replay else None)
+        self._side = torch.cuda.Stream(self.device) if paths.replay else None
         self._grads_of = None  # the graph whose gradients the parameters hold
         self.replays = 0  # steps that ran as a graph replay
-        self.row_grads = row_grads_engaged(mesh, config.grad_accum_steps, self.optimizer)
+        self.row_grads = paths.row_grads
 
     def _fresh_metrics(self) -> MetricsState:
         return MetricsState(M.ScalarMeanState.init(self.device),
@@ -227,10 +219,10 @@ class Trainer:
         """The model's columns of a host batch on the device; under a mesh
         with ``global_rows``, checked to be this rank's share of a global
         batch of that many rows."""
-        batch = {k: v for k, v in batch.items() if k in self._inputs}
         if self.mesh is not None and global_rows is not None:
-            return multihost.global_batch(batch, self.mesh, global_rows, self.device)
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
+            return multihost.global_batch(batch, self.mesh, global_rows, self.device,
+                                          self._inputs)
+        return to_device(batch, self.device, self._inputs)
 
     def _task_label(self, batch, task: str) -> torch.Tensor:
         """A task's label column; a model may derive a joint label (ESMM's
@@ -326,11 +318,12 @@ class Trainer:
         again because a load of optimizer state replaced what it reads)."""
         with span("train.step"):
             with span("train.put"):
+                cols = {k: v for k, v in host_batch.items() if k in self._inputs}
                 compact = (self.config.compact_grad_scatter and self.mesh is None
-                           and cs.batch_fits_compact(host_batch, self.model.schema))
-                graph = self._graph_of(host_batch, compact)
-                batch = (graph.put(host_batch) if graph is not None
-                         else self._put_batch(host_batch, self.global_batch_size))
+                           and cs.batch_fits_compact(cols, self.model.schema))
+                graph = self._graph_of(cols, compact)
+                batch = (to_device(cols, self.device, out=graph.inputs) if graph is not None
+                         else self._put_batch(cols, self.global_batch_size))
             if graph is None:
                 return self._eager_step(batch, compact)
             if not graph.warm:
@@ -341,23 +334,26 @@ class Trainer:
             with span("train.replay"):
                 return self._replay(graph)
 
-    def _graph_of(self, host_batch, compact: bool) -> step_graph.StepGraph | None:
-        """The step graph of the host batch's key, made at its first sight
-        with inputs for the model's columns (the put leaves the others,
-        such as ``_index``, on the host, as ``_put_batch`` does); None where
-        steps run eagerly."""
+    def _graph_of(self, cols, compact: bool) -> step_graph.StepGraph | None:
+        """The step graph of the key of ``cols``, the model's columns of a
+        host batch (its others, such as ``_index``, stay on the host), made
+        at its first sight; None where steps run eagerly."""
         if self._step_graphs is None:
             return None
-        cols = {k: v for k, v in host_batch.items() if k in self._inputs}
         k = step_graph.key(cols, compact)
         graph = self._step_graphs.get(k)
         if graph is None:
             graph = self._step_graphs[k] = step_graph.StepGraph.of(cols, self.device)
         return graph
 
-    def _eager_step(self, batch, compact: bool) -> torch.Tensor:
-        """The step's forward, backward, update and metrics, run now."""
-        self._grads_of = None
+    def _step_body(self, batch, compact: bool, update: Callable[[], None],
+                   reduce: Callable[[torch.Tensor], torch.Tensor] | None = None
+                   ) -> torch.Tensor:
+        """The step, as the eager step runs it and a capture records it: the
+        forward under both lookup modes (the compaction choice, the row
+        gradients), the backward (the gradients set to None first, then
+        ``reduce``'s, if any), ``update`` and the metric update.  Returns the
+        loss, or ``reduce``'s result."""
         with span("train.forward"):
             self.model.train()
             with tables.compact_grad_scatter(compact), tables.row_sparse_grads(self.row_grads):
@@ -365,15 +361,21 @@ class Trainer:
         with span("train.backward"):
             self.optimizer.zero_grad()
             loss.backward()
-            if self.mesh is not None:
-                global_loss = self._reduce_grads(loss)
+            reduced = reduce(loss) if reduce is not None else None
         with span("train.optimizer"):
-            self._apply_grads()
+            update()
         with span("train.metrics"):
             loss = loss.detach()
             self._update_metrics(self.metrics, batch,
                                  {t: v.detach() for t, v in logits.items()}, loss)
-        return loss if self.mesh is None else global_loss
+        return loss if reduced is None else reduced
+
+    def _eager_step(self, batch, compact: bool) -> torch.Tensor:
+        """The step run now: under a mesh with the gradients reduced and
+        the global loss returned."""
+        self._grads_of = None
+        return self._step_body(batch, compact, self._apply_grads,
+                               self._reduce_grads if self.mesh is not None else None)
 
     def _warm_up(self, graph: step_graph.StepGraph, batch, compact: bool) -> torch.Tensor:
         """A key's first step: eager, on the side stream the capture uses."""
@@ -386,22 +388,17 @@ class Trainer:
         return loss
 
     def _capture(self, graph: step_graph.StepGraph, batch, compact: bool) -> None:
-        """Captures the step into ``graph`` (no kernel runs; the replay
-        that follows runs them).  The gradients are set to None first, so
-        the backward makes them in the graph's pool.  A failure raises."""
+        """Captures the step's body into ``graph`` with the optimizer's
+        update alone (its rate is written before each replay), no kernel
+        running: the replay that follows runs them.  The gradients are set
+        to None before the capture, so the backward makes them in the
+        graph's pool.  A failure raises."""
         graph.graph = None  # a graph captured again frees its old pool first
         self.optimizer.zero_grad()
-        self.model.train()
         cuda_graph = torch.cuda.CUDAGraph()
         cuda_graph.register_generator_state(self.generator)
         with torch.cuda.graph(cuda_graph, stream=self._side):
-            with tables.compact_grad_scatter(compact):
-                loss, logits = self._loss_and_logits(batch)
-            loss.backward()
-            self.optimizer.apply()
-            loss = loss.detach()
-            self._update_metrics(self.metrics, batch,
-                                 {t: v.detach() for t, v in logits.items()}, loss)
+            loss = self._step_body(batch, compact, self.optimizer.apply)
         graph.graph, graph.loss, graph.version = cuda_graph, loss, self.optimizer.version
         graph.grads = [p.grad for p in self.model.parameters()]
         self._grads_of = None

@@ -315,7 +315,8 @@ class Optimizer:
     A step is two halves: :meth:`prepare` on the host (the rate written, the
     count advanced) and :meth:`apply` on the device (the update, what a CUDA
     graph holds).  ``capturable``: the update may be captured, i.e. the
-    optimizer's class is ``graph_safe`` and its rate a tensor.  ``version``
+    optimizer's class is ``graph_safe`` and its rate a tensor.
+    ``row_grads``: the class applies row gradients.  ``version``
     counts the loads of state, which replace the state tensors a captured
     update reads."""
 
@@ -328,6 +329,7 @@ class Optimizer:
         self._lr = lr if torch.is_tensor(lr) else None
         self._lr_written = float(lr) if self._lr is not None else None
         self.capturable = self._lr is not None and getattr(type(opt), "graph_safe", False)
+        self.row_grads = getattr(type(opt), "row_grads", False)
         # what the instance was built with; a loaded state keeps them
         self._built = [{k: g[k] for k in ("lr", "capturable", "fused") if k in g}
                        for g in opt.param_groups]
@@ -433,6 +435,12 @@ class DualOptimizer:
         """Whether every part's update may be captured (its FTRL part's
         cannot: a dual optimizer steps eagerly)."""
         return all(opt.capturable for opt in self.parts.values())
+
+    @property
+    def row_grads(self) -> bool:
+        """Whether every part applies row gradients (its FTRL part does
+        not: a dual optimizer's tables take dense gradients)."""
+        return all(opt.row_grads for opt in self.parts.values())
 
     def zero_grad(self) -> None:
         for opt in self.parts.values():

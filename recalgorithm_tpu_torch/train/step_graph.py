@@ -1,10 +1,11 @@
-"""The train step as one CUDA graph, replayed: what ``Trainer.train_step``
-keeps for it (``train/loop.py``).
+"""How a train step runs (:func:`engaged`), and the train step as one CUDA
+graph, replayed: what ``Trainer.train_step`` keeps for it (``train/loop.py``).
 
 A graph is keyed by the step's compaction choice and by the name, shape and
 dtype of each of the model's columns (:func:`key`).  It owns one device
-tensor a column (:attr:`StepGraph.inputs`), which the put fills in place
-(the same pageable copies as an eager step's, without new tensors).  The
+tensor a column (:attr:`StepGraph.inputs`), which the put
+(``utils/device.to_device`` with ``out``) fills in place (the same pageable
+copies as an eager step's, without new tensors).  The
 first step of a key runs eagerly on the trainer's side stream (the warm-up:
 it builds the optimizer's state and every lazily made handle); the second
 captures forward, loss, backward, optimizer update and metric update, then
@@ -27,21 +28,36 @@ replay ran shows in a profiler's trace of the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
 
+from recalgorithm_tpu_torch.utils.device import host_tensor
+
 Key = tuple
 
 
-def engaged(device: torch.device, mesh, grad_accum_steps: int, optimizer) -> bool:
-    """Whether train steps replay graphs: on CUDA, with no process mesh
-    (its gloo collectives cannot be captured), no gradient accumulation (its
-    branch on the micro-step would need two graphs) and an optimizer whose
-    every update can be captured."""
-    return (torch.device(device).type == "cuda" and mesh is None and grad_accum_steps == 1
-            and bool(optimizer.capturable))
+class Paths(NamedTuple):
+    """How a trainer's steps run (:func:`engaged`)."""
+
+    replay: bool     # from a key's second step on, a captured CUDA graph replays
+    row_grads: bool  # the tables take row gradients, and only touched rows update
+
+
+def engaged(device: torch.device, mesh, grad_accum_steps: int, optimizer) -> Paths:
+    """Both choices from one condition, no process mesh (its all-reduce
+    wants dense gradients, and its gloo collectives cannot be captured) and
+    no gradient accumulation (its running mean is dense, and its branch on
+    the micro-step would need two graphs), and from what the device and the
+    optimizer declare: steps replay on CUDA with an optimizer whose every
+    update can be captured (``capturable``), and make row gradients with
+    one whose every update applies them (``row_grads``; a dual optimizer's
+    FTRL does not)."""
+    alone = mesh is None and grad_accum_steps == 1
+    return Paths(replay=alone and torch.device(device).type == "cuda"
+                 and bool(optimizer.capturable),
+                 row_grads=alone and bool(optimizer.row_grads))
 
 
 def key(batch: Mapping[str, np.ndarray], compact: bool) -> Key:
@@ -63,16 +79,10 @@ class StepGraph:
 
     @classmethod
     def of(cls, batch: Mapping[str, np.ndarray], device) -> "StepGraph":
-        """Static inputs shaped as ``batch``'s columns, on ``device``."""
-        return cls({k: torch.empty(np.shape(v), dtype=torch.from_numpy(np.asarray(v)).dtype,
-                                   device=device) for k, v in batch.items()})
-
-    def put(self, batch: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
-        """The host batch's columns copied into the static inputs (its
-        other columns, such as ``_index``, stay on the host)."""
-        for k, x in self.inputs.items():
-            x.copy_(torch.from_numpy(np.asarray(batch[k])))
-        return self.inputs
+        """Static inputs shaped as ``batch``'s columns put on ``device``."""
+        return cls({k: torch.empty_like(host_tensor(v), device=device,
+                                        memory_format=torch.contiguous_format)
+                    for k, v in batch.items()})
 
     def replay(self) -> torch.Tensor:
         """Runs the captured step; returns a copy of its loss, which the

@@ -98,11 +98,11 @@ EAGER_CASES = {
 @pytest.mark.parametrize("case", list(EAGER_CASES))
 def test_engagement_rule_stays_eager(case):
     """Each condition alone keeps every step eager."""
-    assert step_graph.engaged(*EAGER_CASES[case]()) is False
+    assert step_graph.engaged(*EAGER_CASES[case]()).replay is False
 
 
 def test_engagement_rule_replays_on_cuda_with_a_graph_safe_optimizer():
-    assert step_graph.engaged("cuda", None, 1, _tensor_rate_adam()) is True
+    assert step_graph.engaged("cuda", None, 1, _tensor_rate_adam()).replay is True
     # the class declares it: torch's Adam and SGD are, the package's own are not
     assert optimizers.Adam.graph_safe and optimizers.SGD.graph_safe
     for cls in (optimizers.Adagrad, optimizers.RMSProp, optimizers.Ftrl, optimizers.LazyAdam):
@@ -191,20 +191,27 @@ def test_trainer_metrics_update_and_reset_in_place(gen, tmp_path):
     assert float(tr.metrics.loss_mean.count) == 5 * 64  # evaluate left them alone
 
 
-def test_graph_inputs_leave_other_columns_on_the_host(gen, tmp_path):
+def test_graph_inputs_leave_other_columns_on_the_host(gen, tmp_path, monkeypatch):
     """A graph's static inputs are the model's columns; a host batch that
     carries more (``_index``) is put as the eager step puts it."""
     tr = _trainer(gen, tmp_path)
     hb = gen.batch(64, 0)
     hb["_index"] = np.arange(64, dtype=np.int64)
     tr._step_graphs = {}  # as on a card; the graph's inputs on the CPU here
-    graph = tr._graph_of(hb, compact=False)
-    assert "_index" not in graph.inputs and graph.inputs.keys() == tr._put_batch(hb).keys()
-    put = graph.put(hb)
+    seen = []
+    graph_of = tr._graph_of
+    monkeypatch.setattr(tr, "_graph_of", lambda cols, compact: seen.append(cols)
+                        or graph_of(cols, compact))
+    monkeypatch.setattr(tr, "_warm_up", lambda graph, batch, compact: seen.append(batch))
+    tr.train_step(hb)  # the put, then a warm-up that only records its batch
+    cols, put = seen
+    ((key, graph),) = tr._step_graphs.items()
+    assert "_index" not in cols and put is graph.inputs
+    assert graph.inputs.keys() == tr._put_batch(hb).keys()
     for k, x in tr._put_batch(hb).items():
         assert torch.equal(put[k], x), k
-    assert tr._graph_of(hb, compact=False) is graph
-    assert tr._graph_of(hb, compact=True) is not graph  # another key
+    assert graph_of(cols, compact=key[0]) is graph
+    assert graph_of(cols, compact=not key[0]) is not graph  # another key
 
 
 def test_graph_gate_passes_twins_and_refuses_a_planted_fault(gen, tmp_path):

@@ -33,9 +33,10 @@ from recalgorithm_tpu_torch.embed import tables
 from recalgorithm_tpu_torch.embed.tables import EmbeddingCollection, TableSpec
 from recalgorithm_tpu_torch.features import schema as S
 from recalgorithm_tpu_torch.models.dlrm import DLRM, DLRMConfig
+from recalgorithm_tpu_torch.ops import compact_scatter as cs
 from recalgorithm_tpu_torch.ops.cuda import row_adagrad as ra
-from recalgorithm_tpu_torch.train import optimizers
-from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig, row_grads_engaged
+from recalgorithm_tpu_torch.train import optimizers, step_graph
+from recalgorithm_tpu_torch.train.loop import Trainer, TrainerConfig
 from recalgorithm_tpu_torch.utils.summary import SpanRecord
 
 STEPS = 3
@@ -295,7 +296,32 @@ RULE = {
 @pytest.mark.parametrize("case", RULE)
 def test_engagement_rule(case):
     mesh, accum, make, want = RULE[case]
-    assert row_grads_engaged(mesh, accum, make()) is want
+    assert step_graph.engaged("cpu", mesh, accum, make()).row_grads is want
+
+
+def test_captured_body_makes_row_gradients_as_the_eager_step(tmp_path):
+    """The step body run as a capture runs it (the optimizer's update
+    alone, the rate written first), without a graph: under Adagrad its
+    tables take row gradients and it ends bitwise where the eager step
+    ends."""
+    runs = {}
+    for mode in ("eager", "capture"):
+        tr = _trainer(tmp_path, mode)
+        assert tr.row_grads is True
+        for b in _criteo_batches():
+            if mode == "eager":
+                loss = tr.train_step(b)
+            else:
+                tr.optimizer.prepare()
+                compact = cs.batch_fits_compact(b, tr.model.schema)
+                loss = tr._step_body(tr._put_batch(b), compact, tr.optimizer.apply)
+            sparse = {k for k, p in tr.model.named_parameters() if p.grad.is_sparse}
+            assert sparse == {f"embedder.embed.tables.cat_{i}" for i in range(26)}, mode
+        runs[mode] = (float(loss), {k: p.detach().clone()
+                                    for k, p in tr.model.named_parameters()})
+    assert runs["capture"][0] == runs["eager"][0]
+    for k, p in runs["eager"][1].items():
+        assert torch.equal(runs["capture"][1][k], p), k
 
 
 @pytest.mark.parametrize("case", ["adam", "sgd", "dual", "grad_accum"])
