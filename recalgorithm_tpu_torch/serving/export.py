@@ -83,8 +83,10 @@ def export_stablehlo(
     served = _Serve(_served_copy(model, quantize_embeddings))
     device = next(served.parameters()).device
     spec = _input_spec(schema, batch_size)
-    example = to_device({name: np.zeros(shape, dtype) for name, (shape, dtype) in spec.items()},
-                        device)
+    # a tensor of its own a column: the artifact saves its example inputs,
+    # and torch.save refuses a card put's typed views of one buffer
+    example = {k: v.clone() for k, v in to_device(
+        {name: np.zeros(shape, dtype) for name, (shape, dtype) in spec.items()}, device).items()}
     with torch.no_grad():
         program = torch.export.export(served, (example,), strict=False)
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)

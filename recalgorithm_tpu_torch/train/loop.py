@@ -77,7 +77,8 @@ Data contract: iterables of host batches (dict[str, np.ndarray]) with fixed
 shapes; an optional ``"_weights"`` (B,) 0/1 mask marks real rows in padded
 eval tails.  Only the model's inputs (the schema's batch columns) and
 ``_weights`` go to the device: metadata such as ``_index`` stays on the
-host.  The put is ``utils/device.to_device``.  The model is built (and
+host.  The put is ``utils/device.to_device`` (on a card, one non-blocking
+copy through pinned staging memory).  The model is built (and
 initialised) by the caller; the trainer moves it to its device.
 """
 
@@ -311,7 +312,9 @@ class Trainer:
         device; under a mesh the global batch's).  The compaction choice is
         made on the host batch, before it goes to the device.  Its phases
         are spans under ``train.step`` (``utils/summary.py``; recorded while
-        a profiler runs): ``train.put``, then for an eager step
+        a profiler runs): ``train.put`` (the compaction choice and the put,
+        which on a card returns once its copy is queued, after waiting only
+        where the host is two puts ahead of the card), then for an eager step
         ``train.forward``, ``train.backward``, ``train.optimizer`` and
         ``train.metrics``, for a replayed one ``train.replay`` (after a
         ``train.capture`` where the step captured its graph, or captured it
@@ -322,6 +325,8 @@ class Trainer:
                 compact = (self.config.compact_grad_scatter and self.mesh is None
                            and cs.batch_fits_compact(cols, self.model.schema))
                 graph = self._graph_of(cols, compact)
+                # a graph's inputs are overwritten on the stream its replays run
+                # on, so the previous replay has read them before this copy lands
                 batch = (to_device(cols, self.device, out=graph.inputs) if graph is not None
                          else self._put_batch(cols, self.global_batch_size))
             if graph is None:

@@ -3,13 +3,16 @@ graph, replayed: what ``Trainer.train_step`` keeps for it (``train/loop.py``).
 
 A graph is keyed by the step's compaction choice and by the name, shape and
 dtype of each of the model's columns (:func:`key`).  It owns one device
-tensor a column (:attr:`StepGraph.inputs`), which the put
-(``utils/device.to_device`` with ``out``) fills in place (the same pageable
-copies as an eager step's, without new tensors).  The
-first step of a key runs eagerly on the trainer's side stream (the warm-up:
-it builds the optimizer's state and every lazily made handle); the second
-captures forward, loss, backward, optimizer update and metric update, then
-replays them; every later step replays.
+tensor a column (:attr:`StepGraph.inputs`), typed views of one flat buffer
+(``utils/device.empty_batch``), which the put (``utils/device.to_device``
+with ``out``) fills in place with one non-blocking copy from pinned staging
+memory, on the trainer's current stream: the stream the replay runs on, so
+stream order keeps the previous replay's reads of the inputs ahead of the
+copy that overwrites them.  The first step of a key runs eagerly on the
+trainer's side stream (the warm-up: it builds the optimizer's state and
+every lazily made handle); the second captures forward, loss, backward,
+optimizer update and metric update, then replays them; every later step
+replays.
 
 What a replay reads in place: the static inputs, the parameters, the
 optimizer's state and its tensor rate (``train/optimizers.py``), the
@@ -33,7 +36,7 @@ from typing import Mapping, NamedTuple
 import numpy as np
 import torch
 
-from recalgorithm_tpu_torch.utils.device import host_tensor
+from recalgorithm_tpu_torch.utils.device import empty_batch
 
 Key = tuple
 
@@ -80,9 +83,7 @@ class StepGraph:
     @classmethod
     def of(cls, batch: Mapping[str, np.ndarray], device) -> "StepGraph":
         """Static inputs shaped as ``batch``'s columns put on ``device``."""
-        return cls({k: torch.empty_like(host_tensor(v), device=device,
-                                        memory_format=torch.contiguous_format)
-                    for k, v in batch.items()})
+        return cls(empty_batch(batch, device))
 
     def replay(self) -> torch.Tensor:
         """Runs the captured step; returns a copy of its loss, which the
