@@ -103,7 +103,8 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      --eval_recall_at 50) train ZOO_TRAIN_STEPS steps each through cli.main
      on cuda, every task's export predictions held to the CPU; a PLE and a
      DIEN train step (no tower BN, dropout 0) against the f64 CPU step as
-     phase 8; the DIEN LazyAdam step leaves every element with a 0 gradient,
+     phase 8; DIEN's LazyAdam steps replay from the second on (its count on
+     the card), and its replayed step leaves every element with a 0 gradient,
      every table row the batch did not read among them, bitwise unchanged;
      the PLE and DIEN train steps profiled; TwoTower's corpus from the eval
      split: brute_force_top_k and quantized_top_k on cuda against their CPU
@@ -155,8 +156,9 @@ or H200), nvcc and PyTorch built for CUDA.  Phases, each printed:
      the loss sequence; a fresh trainer's steps 2 and 3 replays; the
      streaming train metrics (AUC, accuracy, logloss, calibration, loss)
      against the eager step's, and the rows they counted equal; every
-     model of the zoo 4 steps at a small size: the 24 whose optimizer can
-     be captured replay steps 2-4, DIEN and the two W&D models stay eager.
+     model of the zoo 4 steps at a small size: the 25 whose optimizer can
+     be captured (DIEN's LazyAdam among them) replay steps 2-4, the two W&D
+     models stay eager.
 
 Each main path's kernel launch counts are set to 0 just before it and read
 just after: a kernel of the path that never launched fails the run.  Where
@@ -1856,17 +1858,22 @@ def artifacts_phase(work: str, gen, din_export: str, bst_export: str, wd_export:
 
 
 def lazy_adam_untouched(best_dir: str) -> None:
-    """One DIEN train step on cuda (config defaults, LazyAdam): every element
-    whose gradient is 0, and so every table row the batch did not read, is
-    bitwise what it was before the step."""
+    """DIEN train steps on cuda (config defaults, LazyAdam, its count on the
+    card): the second and third replay the step's graph, and in the third
+    every element whose gradient is 0, and so every table row the batch did
+    not read, is bitwise what it was before the step."""
     schema, weights, cfg, hb = step_setup("DIEN", best_dir)
     tr = make_trainer("DIEN", schema, weights, cfg, "cuda", best_dir)
+    for _ in range(2):  # the warm-up, then the capture and its first replay
+        tr.train_step(hb)
     # the batch columns each table is read with
     reads = defaultdict(list)
     for key, vocab, _ in tr.model.embedder.fields + [("feedid", "feedid", ""), (SEQ, "feedid", "")]:
         reads[f"embedder.embed.tables.{vocab}"].append(hb[key].reshape(-1))
     before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
     tr.train_step(hb)
+    if tr.replays != 2:
+        raise AssertionError(f"DIEN's steps 2 and 3: {tr.replays} replays, not 2")
     untouched_rows = moved = 0
     for n, p in tr.model.named_parameters():
         zero = p.grad == 0
@@ -1880,8 +1887,9 @@ def lazy_adam_untouched(best_dir: str) -> None:
             if not bool(zero[unread].all()):
                 raise AssertionError(f"{n}: a row the batch did not read has a gradient")
             untouched_rows += int(unread.sum())
-    print(f"DIEN LazyAdam step on cuda: {untouched_rows} table rows the batch did not read "
-          f"and every element with a 0 gradient bitwise unchanged; {moved} elements moved")
+    print(f"DIEN LazyAdam steps on cuda: steps 2 and 3 replayed; in the third "
+          f"{untouched_rows} table rows the batch did not read and every element with a 0 "
+          f"gradient bitwise unchanged; {moved} elements moved")
 
 
 def plain_artifact_check(name: str, export_dir: str, schema, gen, work: str) -> None:
@@ -3501,9 +3509,9 @@ def main() -> int:
 
     phase("15. main path 6: the multi-task family, DIEN and TwoTower at full width on cuda: "
           f"{', '.join(NEW_MODELS)} through cli.main ({ZOO_TRAIN_STEPS} steps, TwoTower with "
-          f"--eval_recall_at {RECALL_K}); PLE and DIEN train steps vs the f64 CPU step, the "
-          "LazyAdam step's untouched rows, both steps profiled; retrieval; MMOE and TwoTower "
-          "artifacts; the golden recipes")
+          f"--eval_recall_at {RECALL_K}); PLE and DIEN train steps vs the f64 CPU step, "
+          "DIEN's replayed LazyAdam step's untouched rows, both steps profiled; retrieval; "
+          "MMOE and TwoTower artifacts; the golden recipes")
     zero_counts()
     multitask_phase(work, gen, card, kind)
     if any(kernel_counts().values()):

@@ -17,6 +17,13 @@ train-mode call (so a model initialised in eval mode, as the JAX trainer
 initialises it, cannot train with the flag), the parameter is made here at
 construction, and only when the flag is set: a model without the loss owns
 no parameter that no step would reach.
+
+The forward's parts are spans (``utils/summary.py``, recorded while a
+profiler runs): ``dien.extract`` (the GRU), ``dien.attend`` (the masked
+softmax attention), ``dien.evolve`` (the AGRU/AUGRU) and, in train mode
+with the flag, ``dien.aux``.  A replayed train step runs none of them on
+the host, so they show on eager steps alone (a graph's warm-up, eval,
+predict, a mesh).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from recalgorithm_tpu_torch.ops.attention import NEG_INF, sequence_mask
 from recalgorithm_tpu_torch.ops.mlp import glorot_param
 from recalgorithm_tpu_torch.ops.recurrent import GRULoop
 from recalgorithm_tpu_torch.parallel import multihost
+from recalgorithm_tpu_torch.utils.summary import span
 
 SEQ = "his_read_comment_7d_seq"
 
@@ -83,21 +91,23 @@ class DIEN(nn.Module):
         seq = embed.embed_sequence("feedid", batch[SEQ])        # (B, T, na)
         lengths = batch[SEQ + "_len"]
 
-        # interest extraction
-        h, _ = self.gru(seq, lengths)  # (B, T, nh)
-        # attention: h @ (W e_target), masked softmax over time (dien.py:206-218)
-        w_ea = target @ self.attention_project_matrix.T  # (B, nh)
-        scores = torch.einsum("bth,bh->bt", h, w_ea)
-        scores = torch.where(sequence_mask(lengths, seq.shape[1]), scores,
-                             torch.full_like(scores, NEG_INF))
-        att = torch.softmax(scores, dim=1)
-        # interest evolution
-        _, final_state = self.evolution(h, lengths, att)
+        with span("dien.extract"):  # interest extraction
+            h, _ = self.gru(seq, lengths)  # (B, T, nh)
+        with span("dien.attend"):
+            # h @ (W e_target), masked softmax over time (dien.py:206-218)
+            w_ea = target @ self.attention_project_matrix.T  # (B, nh)
+            scores = torch.einsum("bth,bh->bt", h, w_ea)
+            scores = torch.where(sequence_mask(lengths, seq.shape[1]), scores,
+                                 torch.full_like(scores, NEG_INF))
+            att = torch.softmax(scores, dim=1)
+        with span("dien.evolve"):  # interest evolution
+            _, final_state = self.evolution(h, lengths, att)
 
         x = torch.cat([batch["dense"], category, target, final_state], dim=-1)
         losses = {}
         if self.config.use_auxiliary_loss and self.training:
-            losses["aux"] = self._auxiliary_loss(h, seq, lengths)
+            with span("dien.aux"):
+                losses["aux"] = self._auxiliary_loss(h, seq, lengths)
         return {"read_comment": self.fcn(x)}, losses
 
     def _auxiliary_loss(self, h: torch.Tensor, seq: torch.Tensor,

@@ -37,11 +37,11 @@ Responsibilities (the reference's Estimator usage, wide_and_deep.py:331-376):
     optimizer's FTRL) the gradients are dense;
   * on CUDA the whole step is one CUDA graph, replayed
     (``train/step_graph.py``): where there is no process mesh, no gradient
-    accumulation and the optimizer's updates can be captured (Adam and SGD),
-    a key's (compaction choice, columns' shapes) first step runs eagerly,
-    its second captures and replays, and every later one replays.  The
-    eager step and the capture run one body (``_step_body``).  Everywhere
-    else every step runs eagerly;
+    accumulation and the optimizer's updates can be captured (Adam, SGD and
+    LazyAdam), a key's (compaction choice, columns' shapes) first step runs
+    eagerly, its second captures and replays, and every later one replays.
+    The eager step and the capture run one body (``_step_body``).
+    Everywhere else every step runs eagerly;
   * gradient accumulation (``grad_accum_steps`` = k, ``optax.MultiSteps``
     semantics): the optimizer is applied every k micro-batches with the
     running mean of their gradients, so its count (Adam's bias correction,

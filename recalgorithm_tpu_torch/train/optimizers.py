@@ -26,13 +26,14 @@ nothing.  Every update is coordinate-wise, so it is bitwise the same
 whatever the grouping.
 
 A CUDA graph can hold the update of an optimizer class whose ``graph_safe``
-is True: :class:`Adam` and :class:`SGD`.  On CUDA parameters ``build`` makes
-them with the rate as a 0-d device tensor (Adam fused and ``capturable``,
-SGD fused), which :class:`Optimizer` writes in place before each update, so
-a replayed update reads the schedule's rate of its count.  Adagrad, RMSProp,
-FTRL and LazyAdam read the rate (and LazyAdam its bias correction) on the
-host: their steps stay eager.  :class:`Adagrad` (``row_grads``) also takes
-a table's row gradient and updates the touched rows alone.
+is True: :class:`Adam`, :class:`SGD` and :class:`LazyAdam`.  On CUDA
+parameters ``build`` makes them with the rate as a 0-d device tensor (Adam
+fused and ``capturable``, SGD fused, LazyAdam with its count on the device),
+which :class:`Optimizer` writes in place before each update, so a replayed
+update reads the schedule's rate of its count.  Adagrad, RMSProp and FTRL
+read the rate on the host: their steps stay eager.  :class:`Adagrad`
+(``row_grads``) also takes a table's row gradient and updates the touched
+rows alone.
 """
 
 from __future__ import annotations
@@ -268,20 +269,30 @@ class LazyAdam(torch.optim.Optimizer):
     (``count`` in each param group, so it checkpoints with the groups), not
     a per-coordinate one.  A parameter with no gradient in a step (``None``)
     counts as an all-zero gradient: it does not move, and n still advances.
-    The correction factors are f32, as the JAX update computes them."""
+    The correction factors are f32, as the JAX update computes them.
 
-    def __init__(self, params, lr: float, betas: tuple[float, float] = (0.9, 0.999),
-                 eps: float = 1e-8):
-        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, count=0))
+    ``count`` is a 0-d int64 tensor on the parameters' device, which the
+    update advances itself, and the corrections stay there as 0-d tensors:
+    nothing is read back to the host, so with a tensor rate (``build`` makes
+    one on CUDA parameters) the update can be captured.  A checkpoint holds
+    the count as an int (:meth:`Optimizer.state_dict`)."""
+
+    graph_safe = True
+
+    def __init__(self, params, lr: float | torch.Tensor,
+                 betas: tuple[float, float] = (0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+        for group in self.param_groups:
+            group["count"] = torch.zeros((), dtype=torch.int64,
+                                         device=group["params"][0].device)
 
     @torch.no_grad()
     def step(self) -> None:
         for group in self.param_groups:
             b1, b2 = group["betas"]
-            group["count"] += 1
-            n = torch.tensor(float(group["count"]), dtype=torch.float32)
-            c1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** n)
-            c2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** n)
+            n = group["count"].add_(1).to(torch.float32)
+            c1 = 1 - torch.full_like(n, b1) ** n
+            c2 = 1 - torch.full_like(n, b2) ** n
             params, grads, states = _with_grads(group, self.state, lambda p: {
                 "mu": torch.zeros_like(p), "nu": torch.zeros_like(p)})
             if not params:  # no parameter of the group has a gradient
@@ -332,6 +343,7 @@ class Optimizer:
         self.row_grads = getattr(type(opt), "row_grads", False)
         # what the instance was built with; a loaded state keeps them
         self._built = [{k: g[k] for k in ("lr", "capturable", "fused") if k in g}
+                       | ({"count": g["count"]} if torch.is_tensor(g.get("count")) else {})
                        for g in opt.param_groups]
 
     def zero_grad(self) -> None:
@@ -362,12 +374,17 @@ class Optimizer:
         for group in sd["param_groups"]:
             if torch.is_tensor(group["lr"]):
                 group["lr"] = float(group["lr"])
+            if torch.is_tensor(group.get("count")):  # LazyAdam's, stored as an int
+                group["count"] = int(group["count"])
         return {"opt": sd, "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
         self.opt.load_state_dict(state["opt"])
         for group, built in zip(self.opt.param_groups, self._built):
+            count = group.get("count")
             group.update(built)
+            if torch.is_tensor(group.get("count")):  # into the tensor a captured update reads
+                group["count"].fill_(int(count))
         if self.capturable:  # the counts where a captured update reads them
             for st in self.opt.state.values():
                 if "step" in st:
@@ -382,8 +399,8 @@ def build(name: str, learning_rate: float | Schedule, **options
     function of the parameters.  ``learning_rate`` is a float or a schedule.
     ``options`` go to the adagrad, rmsprop and ftrl classes (their keyword
     arguments, such as Adagrad's ``initial_accumulator_value`` and ``eps``;
-    a config's ``optimizer_options()``).  Adam and SGD on CUDA parameters
-    are built graph-safe (module docstring)."""
+    a config's ``optimizer_options()``).  Adam, SGD and LazyAdam on CUDA
+    parameters are built graph-safe (module docstring)."""
     schedule = learning_rate if callable(learning_rate) else (lambda step: learning_rate)
     name = name.lower()
     if options and name not in ("adagrad", "rmsprop", "ftrl"):
@@ -409,7 +426,7 @@ def build(name: str, learning_rate: float | Schedule, **options
     def built(params) -> Optimizer:
         params = list(params)
         lr = schedule(0)
-        if name in ("adam", "sgd") and _graph_options(params):
+        if name in ("adam", "sgd", "lazyadam") and _graph_options(params):
             lr = torch.tensor(float(lr), dtype=torch.float32, device=params[0].device)
         return Optimizer(make(params, lr, **options), schedule)
     return built
@@ -417,7 +434,8 @@ def build(name: str, learning_rate: float | Schedule, **options
 
 def _graph_options(params: list) -> dict:
     """The options that make torch's Adam (both) and SGD (``fused``)
-    graph-safe on CUDA parameters; none elsewhere."""
+    graph-safe on CUDA parameters; none elsewhere (where ``build`` also
+    keeps every rate a float)."""
     if not params or params[0].device.type != "cuda":
         return {}
     return {"capturable": True, "fused": True}
